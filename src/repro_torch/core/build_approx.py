@@ -17,7 +17,6 @@ use the difference form, ``pairwise_sqdist`` the norm identity.
 from __future__ import annotations
 
 import dataclasses
-import os
 import time
 from typing import Optional
 
@@ -61,7 +60,6 @@ class BuildParams:
     block: int = 512              # nodes per device batch
     max_hops: int = 1024
     seed: int = 0
-    checkpoint_dir: Optional[str] = None
 
 
 def _gather_candidates(vectors, cand_ids, cand_dists):
@@ -336,10 +334,6 @@ def build_approx(vectors, params: BuildParams = BuildParams(),
         _add_reverse_edges(new_nbr, new_deg, M)
         n_fixed = _repair_connectivity(vectors, new_nbr, new_deg, M, med)
         graph = make_graph(new_nbr)
-        if p.checkpoint_dir:
-            os.makedirs(p.checkpoint_dir, exist_ok=True)
-            np.savez(os.path.join(p.checkpoint_dir, f"build_iter{it}.npz"),
-                     neighbors=new_nbr.cpu().numpy(), medoid=med, iter=it)
         elapsed = time.perf_counter() - t0
         _build_event(metrics, verbose, f"refine_iter{it}", nodes=n,
                      elapsed_s=elapsed, nodes_per_s=n / max(elapsed, 1e-9),

@@ -20,6 +20,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..kernels.bitdot.ref import unpack_bits_ref
 from .types import RaBitQCodes, take_rows
 
 
@@ -47,10 +48,7 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
 
 def unpack_bits(codes: torch.Tensor, dim: int) -> torch.Tensor:
     """int32[..., W] → f32[..., dim] of ±1 signs."""
-    shifts = torch.arange(32, dtype=torch.int32, device=codes.device)
-    bits = (codes[..., None] >> shifts) & 1
-    signs = 2.0 * bits.float() - 1.0
-    return signs.reshape(*codes.shape[:-1], -1)[..., :dim]
+    return 2.0 * unpack_bits_ref(codes, dim) - 1.0
 
 
 def fit(vectors: torch.Tensor, rotation: torch.Tensor) -> RaBitQCodes:

@@ -151,7 +151,6 @@ class SearchParams:
     alpha: float = 1.0    # α stop rule (Alg. 3); 1.0 = greedy
     adaptive: bool = False  # False → Alg. 1, True → Alg. 3
     max_hops: int = 512   # hard iteration cap
-    rerank: bool = True   # δ-EMQG: exact rerank of results
     beam_width: int = 1   # frontier nodes expanded per hop (W)
 
 

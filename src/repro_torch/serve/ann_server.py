@@ -7,8 +7,8 @@ lock-step beam engine, and the per-request results are fanned back out.
 the exact tier runs the CUDA ``gather_l2_tiled`` kernel (``backend="auto"``).
 
 Clocks, metrics and spans are those of the JAX package's server: every
-request records a logical ``arrival_t`` and a monotonic ``wall_t``
-(``obs.Timer``); latency is submit → completion on the monotonic clock.
+request records its monotonic submit time ``wall_t`` (``obs.Timer``);
+latency is submit → completion on the monotonic clock.
 With ``metrics=`` / ``tracer=`` the server emits the serve taxonomy
 (request-latency / queue-wait / batch-execute histograms, per-status
 counters, batch-aggregated search counters) and the spans
@@ -37,23 +37,13 @@ from ..obs import (
 
 @dataclasses.dataclass
 class ServeStats:
-    """Serve-loop counters.  The resilience counters (``n_rejected``
-    onward) stay zero under the plain ``AnnServer``; the resilience layer,
-    still to be ported, drives them."""
+    """Serve-loop counters."""
 
     n_requests: int = 0
     n_batches: int = 0
     total_latency_s: float = 0.0
     max_latency_s: float = 0.0
     total_search_s: float = 0.0
-    # -- resilience counters -------------------------------------------------
-    n_rejected: int = 0
-    n_shed: int = 0
-    n_degraded: int = 0
-    n_retried: int = 0
-    n_fallback: int = 0
-    n_deadline_missed: int = 0
-    n_failed: int = 0
 
     @property
     def mean_latency_s(self) -> float:
@@ -66,9 +56,8 @@ class ServeStats:
 
 @dataclasses.dataclass
 class _Request:
-    """A queued request: logical arrival (trace clock) + monotonic submit."""
+    """A queued request and its monotonic submit time."""
 
-    arrival_t: float
     wall_t: float
     query: np.ndarray
     seq: int
@@ -82,11 +71,9 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 class AnnServer:
     def __init__(self, index: GraphIndex | EMQGIndex, params: SearchParams,
                  max_batch: int = 64, buckets: tuple[int, ...] = (8, 32, 64),
-                 engine: str = "beam", backend: str = "auto",
+                 backend: str = "auto",
                  metrics: Optional[MetricsRegistry] = None,
                  tracer: Optional[Tracer] = None, device="cuda"):
-        if engine != "beam":
-            raise ValueError(f"unknown engine: {engine!r}")
         self.device = resolve_device(device)
         if not _same_device(index.device, self.device):
             raise ValueError(f"index lives on {index.device}, server was "
@@ -97,7 +84,6 @@ class AnnServer:
         self.buckets = tuple(sorted(set(b for b in buckets if b <= max_batch))) \
             or (max_batch,)
         self.quantized = isinstance(index, EMQGIndex)
-        self.engine = engine
         self.backend = backend
         self.metrics = metrics
         self.tracer = tracer
@@ -105,20 +91,11 @@ class AnnServer:
         self._seq = 0
         self.stats = ServeStats()
 
-    def _search(self, queries: torch.Tensor,
-                params: Optional[SearchParams] = None,
-                engine: Optional[str] = None,
-                backend: Optional[str] = None):
-        """Run one batch through the beam engine.  The overrides are the
-        seam a resilience layer steers (ladder params, breaker tier)."""
-        params = params if params is not None else self.params
-        engine = engine if engine is not None else self.engine
-        backend = backend if backend is not None else self.backend
-        if engine != "beam":
-            raise ValueError(f"unknown engine: {engine!r}")
+    def _search(self, queries: torch.Tensor):
         if self.quantized:
-            return probing_search(self.index, queries, params, backend=backend)
-        return search(self.index, queries, params, backend=backend)
+            return probing_search(self.index, queries, self.params,
+                                  backend=self.backend)
+        return search(self.index, queries, self.params, backend=self.backend)
 
     # -- observability seams -------------------------------------------------
     def _obs_batch(self, n_live: int, res, exec_s: float) -> None:
@@ -128,24 +105,21 @@ class AnnServer:
         self.metrics.histogram("serve_batch_execute_seconds").observe(exec_s)
         self.metrics.histogram("serve_batch_size",
                                buckets=DEFAULT_WORK_BUCKETS).observe(n_live)
-        if res is not None:
-            record_search_result(self.metrics, res, n_live=n_live)
+        record_search_result(self.metrics, res, n_live=n_live)
 
     def _obs_response(self, req: _Request, dispatch_t: float, done_t: float,
-                      status: str, batch_span=None) -> None:
+                      batch_span=None) -> None:
         """Per-request metrics + retroactive request/queue-wait spans."""
         if self.metrics is not None:
             self.metrics.counter("serve_responses_total",
-                                 {"status": status}).inc()
-            if status in ("ok", "failed"):
-                self.metrics.histogram(
-                    "serve_request_latency_seconds").observe(
-                        done_t - req.wall_t)
-                self.metrics.histogram("serve_queue_wait_seconds").observe(
-                    max(dispatch_t - req.wall_t, 0.0))
+                                 {"status": "ok"}).inc()
+            self.metrics.histogram("serve_request_latency_seconds").observe(
+                done_t - req.wall_t)
+            self.metrics.histogram("serve_queue_wait_seconds").observe(
+                max(dispatch_t - req.wall_t, 0.0))
         if self.tracer is not None:
             rspan = self.tracer.start_span(
-                "serve.request", seq=req.seq, status=status,
+                "serve.request", seq=req.seq, status="ok",
                 batch=None if batch_span is None else batch_span.span_id)
             rspan.start = req.wall_t
             qspan = self.tracer.start_span("serve.queue_wait", parent=rspan)
@@ -154,16 +128,15 @@ class AnnServer:
             self.tracer.end_span(rspan, end=done_t)
 
     # -- request path -------------------------------------------------------
-    def submit(self, query: np.ndarray, arrival_t: Optional[float] = None):
-        wall = Timer.now()
+    def submit(self, query: np.ndarray):
         self._queue.append(_Request(
-            arrival_t=arrival_t if arrival_t is not None else wall,
-            wall_t=wall, query=np.asarray(query, np.float32), seq=self._seq))
+            wall_t=Timer.now(), query=np.asarray(query, np.float32),
+            seq=self._seq))
         self._seq += 1
 
-    def submit_many(self, queries: np.ndarray, arrival_ts=None):
-        for i, q in enumerate(queries):
-            self.submit(q, None if arrival_ts is None else float(arrival_ts[i]))
+    def submit_many(self, queries: np.ndarray):
+        for q in queries:
+            self.submit(q)
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -207,7 +180,7 @@ class AnnServer:
                 self.stats.n_requests += 1
                 self.stats.total_latency_s += lat
                 self.stats.max_latency_s = max(self.stats.max_latency_s, lat)
-                self._obs_response(req, t0, t1, "ok", batch_span=bspan)
+                self._obs_response(req, t0, t1, batch_span=bspan)
             if tr:
                 tr.end_span(mspan)
                 tr.end_span(bspan, size=len(take))
