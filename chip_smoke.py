@@ -16,21 +16,31 @@ non-zero and prints no result line):
                every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
                ``nvcc`` per source, all started together);
 2. kernels  — ``gather_l2``, ``gather_l2_tiled`` and ``bitdot`` against
-               their plain PyTorch versions on the same card tensors, at the
-               main path's shapes (base 1M × 128, ids [128, 24] and
-               [128, 96], codes [128, 96, 4]), then timed with CUDA events;
+               their plain PyTorch versions on the same card tensors, at
+               the shapes each path below gives them (base 1M × 128; ids
+               [128, 1] in the drain, [1024, 24] in the build's searches,
+               [128, 24] in the exact searches; codes [128, 24, 4] in the
+               probe phase; and W = 4's [128, 96]), then timed with CUDA
+               events over input sets that hold twice the card's L2;
 3. serve    — the port's ``launch.serve`` path: ``build_emqg`` on the card
                and ``AnnServer.drain`` over 512 queries; the served
                distances are the exact ones, the ids those of the plain
                path on the same card, and recall@10 is printed;
 4. probe    — ``probing_search(use_kernel=True)`` (the bitdot kernel)
    exact      and ``search`` with ``backend="kernel"`` / ``"kernel_tiled"``
-               against their plain paths, on the same index.
+               against their plain paths, on the same index;
+5. profile  — ``torch.profiler`` over one served batch of 128 queries
+               with max_hops = 128 and over one 1024-node candidate
+               search of the build, on the same index; one JSON line each (device busy share, kernel
+               launches, ms per hop), and the operator tables written to
+               ``build/profile/`` under the checkout.
 
 Every kernel's launch count is set to 0 just before the path that runs it
 and read just after; a kernel that path never launched fails the run.  The
-line before the last is the ``kernels`` JSON; the last line is the device
-JSON.  It needs one card and exits non-zero without one.
+``kernels`` line reports each kernel at the shape of the path whose launch
+count it prints.  The line before the last is the card; the one before it
+the ``kernels`` JSON; the last line is the device JSON.  It needs one card
+and exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ SERVE_PARAMS = dict(k=10, l0=10, l_max=256, alpha=1.2, adaptive=True,
 BUILD_PARAMS = dict(max_degree=24, beam_width=64, t=32, iters=2, block=1024,
                     align_degree=True)
 MIN_AGREE = 0.99
+PROFILE_HOPS = 128             # max_hops of the batch under the profiler
 TARGET_N = 1_000_000           # SIFT1M's shape
 SERVE_N = TARGET_N // 2        # halved to fit the run's time limit
 
@@ -111,6 +122,36 @@ def agree(a, b) -> float:
     return float((a == b).all(1).float().mean())
 
 
+def sets_for(torch, bytes_per_set: float) -> int:
+    """How many distinct input sets a timed loop cycles through: enough that
+    together they hold three times the card's L2 cache (collisions and
+    invalid ids take some back), so a replay reads from device memory."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    return max(1, int(-(-3 * l2 // bytes_per_set)))
+
+
+def check_misses_l2(torch, name: str, footprint: int) -> None:
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    check(footprint >= 2 * l2, f"{name}: timed inputs hold {footprint} bytes, "
+          f"under twice the {l2}-byte L2")
+
+
+# (kernel, B, M, the path that gives it this shape)
+GATHER_CASES = (
+    ("gather_l2_tiled", 128, 1, "drain"),            # start and probes: [B, W]
+    ("gather_l2_tiled", 1024, 24, "build"),          # searches: [block, W·M]
+    ("gather_l2_tiled", 128, 24, "exact_kernel_tiled"),
+    ("gather_l2_tiled", 128, 96, "W=4, no path here"),
+    ("gather_l2", 128, 24, "exact_kernel"),
+    ("gather_l2", 128, 96, "W=4, no path here"),
+)
+# (B, K = W·M, path) of the bitdot launch: the expand branch's estimates
+BITDOT_CASES = ((128, 24, "probe"), (128, 96, "W=4, no path here"))
+# each kernel's row in the kernels line: the path whose launches it reports
+REPORTED = {"gather_l2_tiled": "drain", "gather_l2": "exact_kernel",
+            "bitdot": "probe"}
+
+
 def kernel_phase(torch, card: str):
     from repro_torch.kernels.bitdot import ops as bitdot_ops
     from repro_torch.kernels.bitdot import ref as bitdot_ref
@@ -119,22 +160,17 @@ def kernel_phase(torch, card: str):
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    n, d, B = 1_000_000, 128, 128
+    n, d = 1_000_000, 128
     base = torch.randn((n, d), generator=g, device=dev)
-    queries = torch.randn((B, d), generator=g, device=dev)
-    sets = 32                    # distinct id sets: the timed rows miss L2
-
-    def ids_of(M):
-        ids = torch.randint(0, n, (sets, B, M), generator=g, device=dev,
-                            dtype=torch.int32)
-        ids[:, :, ::7] = -1      # some invalid slots in every row
-        return ids
-
-    rows = {}
     replaces = {"gather_l2": "src/repro/kernels/l2dist/l2dist.py:87",
                 "gather_l2_tiled": "src/repro/kernels/l2dist/l2dist.py:145"}
-    for name, M in ((n_, m_) for n_ in replaces for m_ in (24, 96)):
-        ids = ids_of(M)
+    rows = {}
+    for name, B, M, path in GATHER_CASES:
+        sets = sets_for(torch, B * M * 4 * d)
+        ids = torch.randint(0, n, (sets, B, M), generator=g, device=dev,
+                            dtype=torch.int32)
+        ids.view(sets, -1)[:, ::7] = -1      # some invalid slots in every set
+        queries = torch.randn((B, d), generator=g, device=dev)
         fn = getattr(l2ops, name)
         out = fn(base, ids[0], queries)
         torch.cuda.synchronize()
@@ -146,61 +182,74 @@ def kernel_phase(torch, card: str):
         check(torch.allclose(out[ok], expect[ok], rtol=1e-5, atol=1e-4),
               f"{name} [{B},{M}] disagrees with its plain version: {err}")
 
-        def run_kernel(fn=fn, ids=ids):
+        def run_kernel(fn=fn, ids=ids, queries=queries):
             for s in range(sets):
                 fn(base, ids[s], queries)
 
-        def run_plain(ids=ids):
+        def run_plain(ids=ids, queries=queries):
             for s in range(sets):
                 l2ref.gather_l2_ref(base, ids[s], queries)
 
+        flat = ids.view(sets, -1).sort(1).values
+        first = torch.ones_like(flat, dtype=torch.bool)
+        first[:, 1:] = flat[:, 1:] != flat[:, :-1]
+        uniq = int((first & (flat >= 0)).sum()) / sets    # rows a launch reads
+        footprint = 4 * d * int(torch.unique(ids[ids >= 0]).numel())
+        check_misses_l2(torch, f"{name} [{B},{M}]", footprint)
         ms = device_ms(torch, run_kernel) / sets
         plain_ms = device_ms(torch, run_plain) / sets
         valid = int((ids >= 0).sum()) / sets
-        uniq = sum(int(torch.unique(ids[s][ids[s] >= 0]).numel())
-                   for s in range(sets)) / sets
         nbytes = 4 * (B * M + uniq * d + B * d + B * M)
         bound_ms, bound_by = bound(nbytes, 3 * valid * d)
-        rows[(name, M)] = dict(
+        rows[(name, path)] = dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/gather_l2.cu",
-            replaces=replaces[name],
+            replaces=replaces[name], path=path,
             shape=f"ids[{B},{M}] base[{n},{d}]", max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None)
+            library_ms=None, timed_sets=sets, timed_mb=footprint / 1e6)
+        del ids
 
-    K, W = 96, 4
-    codes = torch.randint(-2**31, 2**31 - 1, (sets, B, K, W), generator=g,
-                          device=dev, dtype=torch.int32)
-    q_unit = torch.randn((B, d), generator=g, device=dev)
-    out = bitdot_ops.bitdot(codes[0], q_unit)
-    torch.cuda.synchronize()
-    expect = bitdot_ref.bitdot_ref(codes[0], q_unit)
-    err = float((out - expect).abs().max())
-    check(torch.allclose(out, expect, rtol=1e-5, atol=1e-4),
-          f"bitdot disagrees with its plain version: {err}")
-    ms = device_ms(torch, lambda: [bitdot_ops.bitdot(codes[s], q_unit)
-                                   for s in range(sets)]) / sets
-    plain_ms = device_ms(torch, lambda: [bitdot_ref.bitdot_ref(codes[s], q_unit)
-                                         for s in range(sets)]) / sets
+    W = 4
     shifts = torch.arange(32, device=dev, dtype=torch.int32)
-    set_bits = sum(int(((codes[s][..., None] >> shifts) & 1).sum())
-                   for s in range(sets)) / sets
-    # one add of q[32w + j] for each set bit j of each word w
-    bound_ms, bound_by = bound(4 * (B * K * W + B * 32 * W + B * K), set_bits)
-    rows[("bitdot", K)] = dict(
-        name="bitdot", route="cuda",
-        source="src/repro_torch/kernels/csrc/bitdot.cu",
-        replaces="src/repro/kernels/bitdot/bitdot.py:45",
-        shape=f"codes[{B},{K},{W}] q[{B},{32 * W}]", max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None)
-    del base, codes
+    for B, K, path in BITDOT_CASES:
+        sets = sets_for(torch, B * K * W * 4)
+        codes = torch.randint(-2**31, 2**31 - 1, (sets, B, K, W), generator=g,
+                              device=dev, dtype=torch.int32)
+        q_unit = torch.randn((B, 32 * W), generator=g, device=dev)
+        out = bitdot_ops.bitdot(codes[0], q_unit)
+        torch.cuda.synchronize()
+        expect = bitdot_ref.bitdot_ref(codes[0], q_unit)
+        err = float((out - expect).abs().max())
+        check(torch.allclose(out, expect, rtol=1e-5, atol=1e-4),
+              f"bitdot [{B},{K},{W}] disagrees with its plain version: {err}")
+        footprint = codes.numel() * 4
+        check_misses_l2(torch, f"bitdot [{B},{K},{W}]", footprint)
+        ms = device_ms(torch, lambda: [bitdot_ops.bitdot(codes[s], q_unit)
+                                       for s in range(sets)]) / sets
+        plain_ms = device_ms(torch, lambda: [
+            bitdot_ref.bitdot_ref(codes[s], q_unit) for s in range(sets)]) / sets
+        set_bits = sum(int(((c[..., None] >> shifts) & 1).sum())
+                       for c in codes.split(64)) / sets
+        # one add of q[32w + j] for each set bit j of each word w
+        bound_ms, bound_by = bound(4 * (B * K * W + B * 32 * W + B * K),
+                                   set_bits)
+        rows[("bitdot", path)] = dict(
+            name="bitdot", route="cuda",
+            source="src/repro_torch/kernels/csrc/bitdot.cu",
+            replaces="src/repro/kernels/bitdot/bitdot.py:45", path=path,
+            shape=f"codes[{B},{K},{W}] q[{B},{32 * W}]", max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, timed_sets=sets, timed_mb=footprint / 1e6)
+        del codes
+    del base
     torch.cuda.empty_cache()
     for r in rows.values():
-        print(f"[kernel] {r['name']} {r['shape']}: err {r['max_abs_err']:.3g} "
-              f"ms {r['ms']:.5f} plain_ms {r['plain_ms']:.5f} "
-              f"bound_ms {r['bound_ms']:.5f} ({card})")
+        print(f"[kernel] {r['name']} {r['shape']} ({r['path']}): err "
+              f"{r['max_abs_err']:.3g} ms {r['ms']:.5f} plain_ms "
+              f"{r['plain_ms']:.5f} bound_ms {r['bound_ms']:.5f} "
+              f"({r['bound_by']}); {r['timed_sets']} sets, "
+              f"{r['timed_mb']:.1f} MB ({card})")
     return rows
 
 
@@ -313,6 +362,78 @@ def probe_exact_phase(torch, idx, vq, card: str, counts: dict) -> None:
               f"128 queries ({card})")
 
 
+def _device_us(torch, event) -> float:
+    """Device time of a kernel or copy row; 0 for a host row (whose
+    ``self_device_time_total`` repeats its kernels' time)."""
+    if event.device_type != torch.autograd.DeviceType.CUDA:
+        return 0.0
+    return float(event.self_device_time_total)
+
+
+def _profiled(torch, fn, phase: str, out: Path) -> dict:
+    from repro_torch.kernels.l2dist import ops as l2ops
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    hops0 = l2ops.LAUNCHES["gather_l2_tiled"]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    device_us = sum(_device_us(torch, e) for e in avgs)
+    launches = sum(e.count for e in avgs
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC"))
+    # one gather_l2_tiled launch per hop, plus one for the start distance
+    hops = l2ops.LAUNCHES["gather_l2_tiled"] - hops0 - 1
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"profile_{phase}.txt").write_text(
+        avgs.table(sort_by="self_cpu_time_total", row_limit=40) + "\n"
+        + avgs.table(sort_by="self_device_time_total", row_limit=25))
+    return dict(phase=phase, wall_ms=wall_s * 1e3,
+                device_ms=device_us / 1e3 if device_us else None,
+                device_busy=(device_us / 1e6 / wall_s) if device_us else None,
+                hops=hops, kernel_launches=launches,
+                ms_per_hop=wall_s * 1e3 / max(hops, 1))
+
+
+def profile_phase(torch, idx, vq, out: Path, card: str) -> None:
+    """Where a hop's time goes: ``torch.profiler`` over one served batch of
+    128 queries with ``max_hops = PROFILE_HOPS`` (the profiler's own
+    processing of a whole batch's ~300k launches took minutes), and over
+    one 1024-node candidate search of the build (the build's own search
+    parameters), on the served index.  The device's busy share is its
+    kernel and copy time over the wall time (one stream, so the intervals
+    do not overlap); the profiler's own cost is in that wall time."""
+    from repro_torch.core import BuildParams, SearchParams, search
+    from repro_torch.serve import AnnServer
+
+    bp = BuildParams(**BUILD_PARAMS)
+    srv = AnnServer(idx, SearchParams(**{**SERVE_PARAMS,
+                                         "max_hops": PROFILE_HOPS}),
+                    max_batch=128, buckets=(32, 128), device="cuda")
+    batch = vq[128:256].cpu().numpy()
+    L = bp.beam_width
+    block = SearchParams(k=min(L, idx.graph.n), l0=L, l_max=L,
+                         adaptive=False, max_hops=bp.max_hops)
+
+    def serve():
+        srv.submit_many(batch)
+        srv.drain()
+
+    def build_block():
+        search(idx.graph, idx.graph.vectors[:bp.block], block,
+               with_candidates=True)
+
+    for phase, fn in (("serve", serve), ("build_block", build_block)):
+        row = _profiled(torch, fn, phase, out)
+        row.update(n=idx.graph.n, card=card)
+        print(f"[profile] {json.dumps(row)}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=SERVE_N,
@@ -336,15 +457,11 @@ def main(argv=None) -> int:
 
     card = card_line()
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    built = _build.build_all()
     build_s = time.perf_counter() - t0
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[nvcc] {name}: {line.strip()}")
     print(f"[setup] torch {torch.__version__} cuda {torch.version.cuda}; "
           f"card {card}; kernels built in {build_s:.1f} s "
-          f"({', '.join(sorted(logs)) or 'already built'})")
+          f"({', '.join(built) or 'already built'})")
 
     t_start = time.perf_counter()
     rows = kernel_phase(torch, card)
@@ -359,16 +476,15 @@ def main(argv=None) -> int:
           f"drain) {t_serve - t_kernels:.1f} s, probe and exact "
           f"{time.perf_counter() - t_serve:.1f} s ({card})")
 
-    launches = {"gather_l2": counts["exact_kernel"]["gather_l2"],
-                "gather_l2_tiled": counts["drain"]["gather_l2_tiled"],
-                "bitdot": counts["probe"]["bitdot"]}
     kernels = []
-    # one row per kernel, at the shape the serve path gives it (W = 1)
-    for key in (("gather_l2", 24), ("gather_l2_tiled", 24), ("bitdot", 96)):
-        r = dict(rows[key])
-        r["launches"] = launches[r["name"]]
+    for name, path in REPORTED.items():
+        r = dict(rows[(name, path)])
+        r["launches"] = counts[path][name]
         kernels.append(r)
     print(f"[paths] launch counts by path: {json.dumps(counts)}")
+    t_prof = time.perf_counter()
+    profile_phase(torch, idx, vq, ROOT / "build" / "profile", card)
+    print(f"[time] profile {time.perf_counter() - t_prof:.1f} s ({card})")
     print(f"[serve-summary] {json.dumps(serve)} card={card} "
           f"wall={time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,12 @@
 """Distance primitives: blocked pairwise distances and exact brute force.
 
 Counterpart of ``repro.core.distances``.  Precision: float32 throughout.
-On the card a float32 matrix product may run in TF32 when
-``torch.backends.cuda.matmul.allow_tf32`` is set; ``pairwise_sqdist``
-turns it off, so the norm identity keeps full float32 (about seven
-decimal digits), as the JAX package computes it.
+On the card a float32 matrix product runs in TF32 when
+``torch.backends.cuda.matmul.allow_tf32`` is set.  That flag is the
+process's, so these functions leave it alone; the port's entry points
+(``launch.serve``, ``chip_smoke.py``) turn it off once, so the norm
+identity keeps full float32 (about seven decimal digits), as the JAX
+package computes it.
 """
 
 from __future__ import annotations
@@ -15,14 +17,9 @@ import torch
 from .types import stable_topk_smallest
 
 
-def _full_f32_matmul():
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-
 def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """f32[m, n] squared distances between rows of x (m, d) and y (n, d),
     by the norm identity ‖x‖² + ‖y‖² − 2⟨x, y⟩, clamped at 0."""
-    _full_f32_matmul()
     x = x.float()
     y = y.float()
     x2 = (x * x).sum(-1)[:, None]

@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("gather_l2", "bitdot")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -50,13 +50,11 @@ def _start(name: str):
     return out, tmp, cmd, proc
 
 
-def build_all(names=SOURCES) -> dict[str, str]:
+def build_all(names=SOURCES) -> list[str]:
     """Compile every source whose library is missing, one ``nvcc`` each,
-    all started together.  Returns ``{name: compiler output}`` for the
-    sources it built (the ``-Xptxas -v`` register and spill report)."""
+    all started together, and return the names it built."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = [(n, *_start(n)) for n in names if not library_path(n).exists()]
-    logs = {}
     for name, out, tmp, cmd, proc in started:
         text, _ = proc.communicate()
         if proc.returncode != 0:
@@ -64,8 +62,7 @@ def build_all(names=SOURCES) -> dict[str, str]:
                                f"(exit {proc.returncode}): {' '.join(cmd)}\n"
                                f"{text}")
         os.replace(tmp, out)
-        logs[name] = text
-    return logs
+    return [name for name, *_ in started]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -16,6 +16,7 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
 from ..core import BuildParams, SearchParams, build_emqg
 from ..core.distances import brute_force_knn
@@ -58,6 +59,8 @@ def main(argv=None) -> int:
             ap.error(f"--{name} is not ported to PyTorch yet; run "
                      "`python -m repro.launch.serve` for it")
 
+    # full float32 matrix products (no TF32), as the JAX package computes
+    torch.backends.cuda.matmul.allow_tf32 = False
     registry = tracer = None
     if args.metrics:
         registry = declare_serve_metrics(MetricsRegistry())

@@ -140,6 +140,20 @@ def test_brute_force_knn_matches_reference(exclude_self):
     np.testing.assert_allclose(td.numpy(), rd, rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("allow_tf32", [False, True])
+def test_pairwise_sqdist_leaves_matmul_precision_alone(allow_tf32):
+    """The TF32 flag is the process's: the library reads it, never sets it
+    (the entry points turn it off)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    try:
+        x = _t(gmm(20, 8, 2, seed=4))
+        tdist.brute_force_knn(x, x, 3)
+        assert torch.backends.cuda.matmul.allow_tf32 is allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 @pytest.mark.parametrize("n", [300, 5000])
 def test_medoid_matches_reference(n):
     v = gmm(n, 8, 6, seed=n)
