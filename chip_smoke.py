@@ -7,7 +7,11 @@
 The serve phase's n is cut from the SIFT1M target of 1,000,000 to
 500,000: at 1M the build alone took 740.6 s on an H100 80GB HBM3 at
 700 W and the whole run 808 s, over half of the 1200 s a smoke run may
-take.  The kernel phase always uses the 1M base.
+take.  The kernel phase always uses the 1M base.  The exact build (n =
+4,000), the five baseline builders (n = 20,000 each) and the MIPS build
+(n = 50,000) are smaller still, all at d = 128: Algorithm 2 is O(n²)
+(the paper calls it intractable past ~10⁵) and five more builders and a
+second δ-EMQG build at 500k would not fit the limit.
 
 Phases, each of which raises on a failed check (the script then exits
 non-zero and prints no result line):
@@ -15,32 +19,53 @@ non-zero and prints no result line):
 1. set-up   — torch, the card's name and power limit, and the build of
                every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
                ``nvcc`` per source, all started together);
-2. kernels  — ``gather_l2``, ``gather_l2_tiled`` and ``bitdot`` against
-               their plain PyTorch versions on the same card tensors, at
-               the shapes each path below gives them (base 1M × 128; ids
-               [128, 1] in the drain, [1024, 24] in the build's searches,
-               [128, 24] in the exact searches; codes [128, 24, 4] in the
-               probe phase; and W = 4's [128, 96]), then timed with CUDA
-               events over input sets that hold twice the card's L2;
+2. kernels  — ``gather_l2``, ``gather_l2_tiled``, ``bitdot``,
+               ``fused_estimate`` and ``batched_l2`` against their plain
+               PyTorch versions on the same card tensors, at the shapes each
+               path below gives them (base 1M × 128; ids [128, 1] in the
+               drain, [1024, 24] in the build's searches, [128, 24] in the
+               exact searches; codes [128, 24, 4] in the probe phase; the
+               estimate of ids [128, 24] over a 1M-row code table, W = 4 in
+               the drain and W = 5 in MIPS; rows [1024, 25, 128] in the
+               build's neighbor selection; and W = 4's [128, 96] and the
+               JAX package's benchmark shape [64, 64, 128], on no path),
+               then timed with CUDA events over input sets that hold three
+               times the card's L2 (``torch.cdist`` timed beside
+               ``batched_l2`` as its library yardstick);
 3. serve    — the port's ``launch.serve`` path: ``build_emqg`` on the card
                and ``AnnServer.drain`` over 512 queries; the served
                distances are the exact ones, the ids those of the plain
-               path on the same card, and recall@10 is printed;
+               path (``backend="jnp"``, plain on both tiers) on the same
+               card, and recall@10 is printed;
 4. probe    — ``probing_search(use_kernel=True)`` (the bitdot kernel)
    exact      and ``search`` with ``backend="kernel"`` / ``"kernel_tiled"``
                against their plain paths, on the same index;
-5. profile  — ``torch.profiler`` over one served batch of 128 queries
+5. ags,     — on the same index, 128 queries, each against its plain path:
+   certify,   ``ags_search``; ``search(with_candidates=True)`` and
+   filtered   ``theorem4_delta_prime`` (share found, mean δ′); and
+               ``filtered_search`` with a seeded 10% mask;
+6. profile  — ``torch.profiler`` over one served batch of 128 queries
                with max_hops = 128 and over one 1024-node candidate
                search of the build, on the same index; one JSON line each (device busy share, kernel
-               launches, ms per hop), and the operator tables written to
-               ``build/profile/`` under the checkout.
+               launches and launches per hop, ms per hop), and the operator tables written to
+               ``build/profile/`` under the checkout;
+7. exact    — ``build_exact`` (Algorithm 2) at n = 4,000, then Theorem 1:
+   build      a greedy W = 1 search from the medoid for every corpus point
+               returns that point at distance 0;
+8. baselines — each of ``baselines.BUILDERS`` at n = 20,000: degrees at
+               most M, ≥ 99% of nodes reachable from the medoid (the
+               reference's repair can leave a few cut off; ``knn`` has no
+               repair), recall@10 of ``error_bounded_search`` printed;
+9. mips     — ``build_mips(quantized=True)`` at n = 50,000 and
+               ``mips_search`` for 256 queries: recall@10 against brute-force
+               inner product, ids against the plain path.
 
 Every kernel's launch count is set to 0 just before the path that runs it
 and read just after; a kernel that path never launched fails the run.  The
 ``kernels`` line reports each kernel at the shape of the path whose launch
-count it prints.  The line before the last is the card; the one before it
-the ``kernels`` JSON; the last line is the device JSON.  It needs one card
-and exits non-zero without one.
+count it prints.  Each phase prints its seconds.  The line before the last
+is the card; the one before it the ``kernels`` JSON; the last line is the
+device JSON.  It needs one card and exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -65,6 +90,15 @@ MIN_AGREE = 0.99
 PROFILE_HOPS = 128             # max_hops of the batch under the profiler
 TARGET_N = 1_000_000           # SIFT1M's shape
 SERVE_N = TARGET_N // 2        # halved to fit the run's time limit
+EXACT_N = 4_000                # Algorithm 2 is O(n²): cut to fit the limit
+BASELINE_N = 20_000            # five builders: cut to fit the limit
+# share of nodes a baseline must reach from its medoid: knn has no repair;
+# the others' connectivity repair (the JAX package's, which the port
+# reproduces node for node) evicts a full node's longest edge and can leave
+# a few nodes cut off (ROADMAP C.5)
+MIN_REACH = {"knn": 0.0}
+MIN_REACH_REPAIRED = 0.99
+MIPS_N = 50_000                # a second δ-EMQG build: cut to fit the limit
 
 
 def fail(msg: str):
@@ -109,12 +143,32 @@ def device_ms(torch, fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_us(torch, fn, calls: int = 300) -> float:
+    """Wall time of one eager ``fn()`` call in µs: ``calls`` calls back to
+    back, then one synchronize.  At the paths' shapes this is the host's
+    dispatch cost, which sets a hop's time (``device_ms`` leaves it out)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """(ms, what bounds it): the least time the card could take for the
     bytes moved and the float32 operations done, the larger of the two."""
     by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     by_ops = 1e3 * flops / FP32_FLOP_PER_S
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def recall_at(ids, gt) -> float:
+    """recall@k of id lists [B, k] against ground truth [B, k]."""
+    ids, gt = ids.cpu(), gt.cpu()
+    return float(sum(len(set(a.tolist()) & set(b.tolist()))
+                     for a, b in zip(ids, gt))) / ids.numel()
 
 
 def agree(a, b) -> float:
@@ -128,6 +182,14 @@ def sets_for(torch, bytes_per_set: float) -> int:
     invalid ids take some back), so a replay reads from device memory."""
     l2 = torch.cuda.get_device_properties(0).L2_cache_size
     return max(1, int(-(-3 * l2 // bytes_per_set)))
+
+
+def unique_per_set(torch, ids) -> float:
+    """Mean count of distinct valid ids in each set ``ids[s]``."""
+    flat = ids.view(ids.shape[0], -1).sort(1).values
+    first = torch.ones_like(flat, dtype=torch.bool)
+    first[:, 1:] = flat[:, 1:] != flat[:, :-1]
+    return int((first & (flat >= 0)).sum()) / ids.shape[0]
 
 
 def check_misses_l2(torch, name: str, footprint: int) -> None:
@@ -147,9 +209,45 @@ GATHER_CASES = (
 )
 # (B, K = W·M, path) of the bitdot launch: the expand branch's estimates
 BITDOT_CASES = ((128, 24, "probe"), (128, 96, "W=4, no path here"))
+# (B, K = W·M, code words, d, path) of the fused_estimate launch: the
+# expand branch's estimates at d = 128, and MIPS's augmented d + 1 = 129
+ESTIMATE_CASES = ((128, 24, 4, 128, "drain"), (128, 24, 5, 129, "mips"))
+ESTIMATE_TABLES = 8            # distinct 1M-row code tables the timing cycles
+# (B, M, path) of the batched_l2 launch at d = 128: the selector's kept set
+# (max_keep = M + 1 in the degree alignment), and the JAX package's
+# benchmark shape
+BATCHED_CASES = ((1024, 25, "build"), (64, 64, "reference benchmark, no path"))
 # each kernel's row in the kernels line: the path whose launches it reports
 REPORTED = {"gather_l2_tiled": "drain", "gather_l2": "exact_kernel",
-            "bitdot": "probe"}
+            "bitdot": "probe", "fused_estimate": "drain",
+            "batched_l2": "build"}
+
+
+def kernel_counts() -> dict:
+    """Every kernel's launch count, by name."""
+    from repro_torch.kernels.bitdot import ops as bitdot_ops
+    from repro_torch.kernels.l2dist import ops as l2ops
+
+    return {**l2ops.LAUNCHES, **bitdot_ops.LAUNCHES}
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0 (just before a path runs)."""
+    from repro_torch.kernels.bitdot import ops as bitdot_ops
+    from repro_torch.kernels.l2dist import ops as l2ops
+
+    for counts in (l2ops.LAUNCHES, bitdot_ops.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def popcount32(torch, words):
+    """Set bits of each int32 word (the uint32 pattern), as int64."""
+    x = words.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
 
 
 def kernel_phase(torch, card: str):
@@ -190,14 +288,14 @@ def kernel_phase(torch, card: str):
             for s in range(sets):
                 l2ref.gather_l2_ref(base, ids[s], queries)
 
-        flat = ids.view(sets, -1).sort(1).values
-        first = torch.ones_like(flat, dtype=torch.bool)
-        first[:, 1:] = flat[:, 1:] != flat[:, :-1]
-        uniq = int((first & (flat >= 0)).sum()) / sets    # rows a launch reads
+        uniq = unique_per_set(torch, ids)            # rows a launch reads
         footprint = 4 * d * int(torch.unique(ids[ids >= 0]).numel())
         check_misses_l2(torch, f"{name} [{B},{M}]", footprint)
         ms = device_ms(torch, run_kernel) / sets
         plain_ms = device_ms(torch, run_plain) / sets
+        call = (host_us(torch, lambda: fn(base, ids[0], queries)),
+                host_us(torch, lambda: l2ref.gather_l2_ref(base, ids[0],
+                                                           queries)))
         valid = int((ids >= 0).sum()) / sets
         nbytes = 4 * (B * M + uniq * d + B * d + B * M)
         bound_ms, bound_by = bound(nbytes, 3 * valid * d)
@@ -207,7 +305,8 @@ def kernel_phase(torch, card: str):
             replaces=replaces[name], path=path,
             shape=f"ids[{B},{M}] base[{n},{d}]", max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None, timed_sets=sets, timed_mb=footprint / 1e6)
+            library_ms=None, timed_sets=sets, timed_mb=footprint / 1e6,
+            call_us=call[0], plain_call_us=call[1])
         del ids
 
     W = 4
@@ -229,6 +328,8 @@ def kernel_phase(torch, card: str):
                                        for s in range(sets)]) / sets
         plain_ms = device_ms(torch, lambda: [
             bitdot_ref.bitdot_ref(codes[s], q_unit) for s in range(sets)]) / sets
+        call = (host_us(torch, lambda: bitdot_ops.bitdot(codes[0], q_unit)),
+                host_us(torch, lambda: bitdot_ref.bitdot_ref(codes[0], q_unit)))
         set_bits = sum(int(((c[..., None] >> shifts) & 1).sum())
                        for c in codes.split(64)) / sets
         # one add of q[32w + j] for each set bit j of each word w
@@ -240,25 +341,156 @@ def kernel_phase(torch, card: str):
             replaces="src/repro/kernels/bitdot/bitdot.py:45", path=path,
             shape=f"codes[{B},{K},{W}] q[{B},{32 * W}]", max_abs_err=err,
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None, timed_sets=sets, timed_mb=footprint / 1e6)
+            library_ms=None, timed_sets=sets, timed_mb=footprint / 1e6,
+            call_us=call[0], plain_call_us=call[1])
         del codes
     del base
     torch.cuda.empty_cache()
+    rows.update(estimate_rows(torch, g, n))
+    rows.update(batched_l2_rows(torch, g, d))
     for r in rows.values():
         print(f"[kernel] {r['name']} {r['shape']} ({r['path']}): err "
               f"{r['max_abs_err']:.3g} ms {r['ms']:.5f} plain_ms "
               f"{r['plain_ms']:.5f} bound_ms {r['bound_ms']:.5f} "
-              f"({r['bound_by']}); {r['timed_sets']} sets, "
+              f"({r['bound_by']}); host µs a call {r['call_us']:.1f} "
+              f"(plain {r['plain_call_us']:.1f}); {r['timed_sets']} sets, "
               f"{r['timed_mb']:.1f} MB ({card})")
+    return rows
+
+
+def estimate_rows(torch, g, n: int) -> dict:
+    """fused_estimate at the drain's and the MIPS path's shapes, over
+    ``ESTIMATE_TABLES`` distinct code tables of n rows (one table and its
+    scalars fit the L2; eight do not)."""
+    from repro_torch.kernels.bitdot import ops as bitdot_ops
+    from repro_torch.kernels.bitdot import ref as bitdot_ref
+
+    dev = torch.device("cuda")
+    rows = {}
+    for B, K, W, d, path in ESTIMATE_CASES:
+        last = torch.full((W,), -1, dtype=torch.int64, device=dev)
+        last[-1] = (1 << (d - 32 * (W - 1))) - 1   # pack_bits's zero tail
+        tables = []
+        for _ in range(ESTIMATE_TABLES):
+            codes = (torch.randint(-2**31, 2**31 - 1, (n, W), generator=g,
+                                   device=dev, dtype=torch.int32)
+                     .to(torch.int64) & last).to(torch.int32)
+            norms = 0.5 + torch.rand(n, generator=g, device=dev)
+            ip_xo = 0.5 + 0.4 * torch.rand(n, generator=g, device=dev)
+            tables.append((codes, norms, ip_xo))
+        per_id = 4 * W + 8
+        sets = 2 * sets_for(torch, B * K * per_id)
+        ids = torch.randint(0, n, (sets, B, K), generator=g, device=dev,
+                            dtype=torch.int32)
+        ids.view(sets, -1)[:, ::7] = -1
+        q_unit = torch.randn((B, d), generator=g, device=dev)
+        q_unit /= torch.linalg.norm(q_unit, dim=1, keepdim=True)
+        ctx = (q_unit, q_unit.sum(-1), 1.0 + torch.rand(B, generator=g,
+                                                        device=dev),
+               torch.tensor(float(d), device=dev).sqrt())
+
+        def args(s, tables=tables, ids=ids, ctx=ctx):
+            return (*tables[s % ESTIMATE_TABLES], ids[s], *ctx)
+
+        out = bitdot_ops.fused_estimate(*args(0))
+        torch.cuda.synchronize()
+        expect = bitdot_ref.fused_estimate_ref(*args(0))
+        check(bool(torch.isinf(out[ids[0] < 0]).all()),
+              "fused_estimate: invalid ids must give +inf")
+        ok = ids[0] >= 0
+        err = float((out[ok] - expect[ok]).abs().max())
+        check(torch.allclose(out[ok], expect[ok], rtol=1e-4, atol=1e-3),
+              f"fused_estimate [{B},{K}] W={W} disagrees with its plain "
+              f"version: {err}")
+        table_of = (torch.arange(sets, device=dev) % ESTIMATE_TABLES)
+        key = table_of[:, None, None].to(torch.int64) * n + ids
+        valid = ids >= 0
+        uniq_all = int(torch.unique(key[valid]).numel())
+        footprint = per_id * uniq_all
+        check_misses_l2(torch, f"fused_estimate [{B},{K}] W={W}", footprint)
+        ms = device_ms(torch, lambda: [bitdot_ops.fused_estimate(*args(s))
+                                       for s in range(sets)]) / sets
+        plain_ms = device_ms(torch, lambda: [
+            bitdot_ref.fused_estimate_ref(*args(s)) for s in range(sets)],
+            reps=5) / sets
+        call = (host_us(torch, lambda: bitdot_ops.fused_estimate(*args(0))),
+                host_us(torch, lambda: bitdot_ref.fused_estimate_ref(*args(0))))
+        uniq = unique_per_set(torch, ids)            # rows a launch reads
+        bits = torch.stack([popcount32(torch, t[0]).sum(1) for t in tables])
+        set_bits = int(bits[table_of[:, None, None].expand_as(ids)[valid],
+                            ids[valid].long()].sum()) / sets
+        n_valid = int(valid.sum()) / sets
+        # one add per set bit, then 13 flops of estimator algebra per id
+        bound_ms, bound_by = bound(
+            4 * B * K + uniq * per_id + 4 * B * d + 8 * B + 4 + 4 * B * K,
+            set_bits + 13 * n_valid)
+        rows[("fused_estimate", path)] = dict(
+            name="fused_estimate", route="cuda",
+            source="src/repro_torch/kernels/csrc/fused_estimate.cu",
+            replaces="src/repro/kernels/bitdot/bitdot.py:78", path=path,
+            shape=f"ids[{B},{K}] codes[{n},{W}] d={d}", max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, timed_sets=sets, timed_mb=footprint / 1e6,
+            call_us=call[0], plain_call_us=call[1])
+        del tables, ids
+    torch.cuda.empty_cache()
+    return rows
+
+
+def batched_l2_rows(torch, g, d: int) -> dict:
+    """batched_l2 at the build's and the reference benchmark's shapes; its
+    library yardstick is ``torch.cdist`` (the same work and a square
+    root)."""
+    from repro_torch.kernels.l2dist import ops as l2ops
+    from repro_torch.kernels.l2dist import ref as l2ref
+
+    dev = torch.device("cuda")
+    rows = {}
+    for B, M, path in BATCHED_CASES:
+        sets = sets_for(torch, B * M * d * 4)
+        tiles = torch.randn((sets, B, M, d), generator=g, device=dev)
+        queries = torch.randn((sets, B, d), generator=g, device=dev)
+        out = l2ops.batched_l2(tiles[0], queries[0])
+        torch.cuda.synchronize()
+        expect = l2ref.batched_l2_ref(tiles[0], queries[0])
+        err = float((out - expect).abs().max())
+        check(torch.allclose(out, expect, rtol=1e-5, atol=1e-4),
+              f"batched_l2 [{B},{M},{d}] disagrees with its plain version: "
+              f"{err}")
+        footprint = tiles.numel() * 4
+        check_misses_l2(torch, f"batched_l2 [{B},{M},{d}]", footprint)
+        ms = device_ms(torch, lambda: [l2ops.batched_l2(tiles[s], queries[s])
+                                       for s in range(sets)]) / sets
+        plain_ms = device_ms(torch, lambda: [
+            l2ref.batched_l2_ref(tiles[s], queries[s])
+            for s in range(sets)]) / sets
+        library_ms = device_ms(torch, lambda: [
+            torch.cdist(tiles[s], queries[s][:, None, :])
+            for s in range(sets)]) / sets
+        call = (host_us(torch, lambda: l2ops.batched_l2(tiles[0], queries[0])),
+                host_us(torch, lambda: l2ref.batched_l2_ref(tiles[0],
+                                                            queries[0])))
+        bound_ms, bound_by = bound(4 * (B * M * d + B * d + B * M),
+                                   3 * B * M * d)
+        rows[("batched_l2", path)] = dict(
+            name="batched_l2", route="cuda",
+            source="src/repro_torch/kernels/csrc/batched_l2.cu",
+            replaces="src/repro/kernels/l2dist/l2dist.py:60", path=path,
+            shape=f"rows[{B},{M},{d}]", max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms, timed_sets=sets, timed_mb=footprint / 1e6,
+            call_us=call[0], plain_call_us=call[1])
+        del tiles, queries
+    torch.cuda.empty_cache()
     return rows
 
 
 def serve_phase(torch, n: int, card: str):
     from repro_torch.core import BuildParams, SearchParams, build_emqg
     from repro_torch.core import probing_search
+    from repro_torch.core.build_approx import _bfs_reachable
     from repro_torch.core.distances import brute_force_knn
     from repro_torch.data import clustered_vectors
-    from repro_torch.kernels.l2dist import ops as l2ops
     from repro_torch.serve import AnnServer
 
     d = 128
@@ -266,7 +498,7 @@ def serve_phase(torch, n: int, card: str):
     queries = clustered_vectors(512, d, 48, seed=1)
     counts = {}
 
-    l2ops.LAUNCHES.update(gather_l2=0, gather_l2_tiled=0)
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     idx = build_emqg(base, BuildParams(**BUILD_PARAMS),
@@ -274,22 +506,27 @@ def serve_phase(torch, n: int, card: str):
                      verbose=True, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    counts["build"] = dict(l2ops.LAUNCHES)
+    counts["build"] = kernel_counts()
     deg = idx.graph.degrees().float()
+    cut = int((~_bfs_reachable(idx.graph.neighbors, idx.graph.medoid)).sum())
     print(f"[serve] built δ-EMQG n={n} d={d} in {build_s:.1f} s, mean degree "
-          f"{float(deg.mean()):.2f}, gather_l2_tiled launches "
-          f"{counts['build']['gather_l2_tiled']} ({card})")
+          f"{float(deg.mean()):.2f}, {cut} nodes unreachable from the medoid, "
+          f"launches {json.dumps(counts['build'])} ({card})")
     check(counts["build"]["gather_l2_tiled"] > 0,
           "the build's searches never launched gather_l2_tiled")
+    check(counts["build"]["batched_l2"] > 0,
+          "the build's neighbor selection never launched batched_l2")
 
     srv = AnnServer(idx, SearchParams(**SERVE_PARAMS), max_batch=128,
                     buckets=(32, 128), device="cuda")
-    l2ops.LAUNCHES.update(gather_l2=0, gather_l2_tiled=0)
+    reset_counts()
     srv.submit_many(queries)
     out = srv.drain()
-    counts["drain"] = dict(l2ops.LAUNCHES)
+    counts["drain"] = kernel_counts()
     check(counts["drain"]["gather_l2_tiled"] > 0,
           "AnnServer.drain never launched gather_l2_tiled")
+    check(counts["drain"]["fused_estimate"] > 0,
+          "AnnServer.drain never launched fused_estimate")
     ids = torch.as_tensor(np.stack([o[0] for o in out]))
     dists = torch.as_tensor(np.stack([o[1] for o in out]))
     check(tuple(ids.shape) == (512, 10) and bool(torch.isfinite(dists).all()),
@@ -306,9 +543,7 @@ def serve_phase(torch, n: int, card: str):
     check(share >= MIN_AGREE,
           f"served ids match the plain path on {share:.4f} of queries")
     _, gt = brute_force_knn(vq, idx.graph.vectors, 10)
-    gt = gt.cpu()
-    recall = float(sum(len(set(a.tolist()) & set(b.tolist()))
-                       for a, b in zip(ids, gt))) / ids.numel()
+    recall = recall_at(ids, gt)
     s = srv.stats
     # one gather_l2_tiled launch per hop, plus one per batch for the start
     hops = counts["drain"]["gather_l2_tiled"] - s.n_batches
@@ -317,8 +552,8 @@ def serve_phase(torch, n: int, card: str):
           f"recall@10={recall:.4f}; QPS={s.qps:.1f}; max latency "
           f"{s.max_latency_s * 1e3:.1f} ms; {hops} hops at {ms_per_hop:.3f} "
           f"ms a hop; ids equal to the plain path on {share:.4f} of "
-          f"queries; gather_l2_tiled launches in drain "
-          f"{counts['drain']['gather_l2_tiled']} ({card})")
+          f"queries; launches in drain {json.dumps(counts['drain'])} "
+          f"({card})")
     return idx, vq, dict(n=n, build_s=build_s, recall=recall, qps=s.qps,
                          max_latency_ms=s.max_latency_s * 1e3,
                          drain_s=s.total_search_s, hops=hops,
@@ -327,39 +562,199 @@ def serve_phase(torch, n: int, card: str):
 
 def probe_exact_phase(torch, idx, vq, card: str, counts: dict) -> None:
     from repro_torch.core import SearchParams, probing_search, search
-    from repro_torch.kernels.bitdot import ops as bitdot_ops
-    from repro_torch.kernels.l2dist import ops as l2ops
 
     q = vq[:128]
     p = SearchParams(**SERVE_PARAMS)
-    plain = probing_search(idx, q, p, use_kernel=False)
-    bitdot_ops.LAUNCHES["bitdot"] = 0
+    plain = probing_search(idx, q, p, backend="jnp")
+    reset_counts()
     kern = probing_search(idx, q, p, use_kernel=True)
     torch.cuda.synchronize()
-    counts["probe"] = dict(bitdot_ops.LAUNCHES)
+    counts["probe"] = kernel_counts()
     check(counts["probe"]["bitdot"] > 0,
           "probing_search(use_kernel=True) never launched bitdot")
     share = agree(kern.ids, plain.ids)
     check(share >= MIN_AGREE,
-          f"use_kernel=True ids match use_kernel=False on {share:.4f}")
+          f"use_kernel=True ids match the plain path on {share:.4f}")
     print(f"[probe] bitdot launches {counts['probe']['bitdot']}; ids equal "
-          f"to use_kernel=False on {share:.4f} of 128 queries ({card})")
+          f"to the plain path on {share:.4f} of 128 queries ({card})")
 
     ref = search(idx.graph, q, p, backend="jnp")
     for backend, name in (("kernel", "gather_l2"),
                           ("kernel_tiled", "gather_l2_tiled")):
-        l2ops.LAUNCHES.update(gather_l2=0, gather_l2_tiled=0)
+        reset_counts()
         res = search(idx.graph, q, p, backend=backend)
         torch.cuda.synchronize()
-        counts[f"exact_{backend}"] = dict(l2ops.LAUNCHES)
-        check(l2ops.LAUNCHES[name] > 0, f"search(backend={backend!r}) "
-              f"never launched {name}")
+        counts[f"exact_{backend}"] = kernel_counts()
+        check(counts[f"exact_{backend}"][name] > 0,
+              f"search(backend={backend!r}) never launched {name}")
         share = agree(res.ids, ref.ids)
         check(share >= MIN_AGREE,
               f"search backend={backend} ids match jnp on {share:.4f}")
         print(f"[exact] backend={backend}: {name} launches "
-              f"{l2ops.LAUNCHES[name]}; ids equal to jnp on {share:.4f} of "
-              f"128 queries ({card})")
+              f"{counts[f'exact_{backend}'][name]}; ids equal to jnp on "
+              f"{share:.4f} of 128 queries ({card})")
+
+
+def ags_certify_filtered_phase(torch, idx, vq, card: str,
+                               counts: dict) -> None:
+    """AGS, the Theorem-4 certificate and filtered search on the served
+    index, 128 queries each, the kernels against the plain path."""
+    from repro_torch.core import SearchParams, ags_search, search
+    from repro_torch.core import theorem4_delta_prime
+    from repro_torch.core.filtered import filtered_search
+
+    q = vq[:128]
+    p = SearchParams(**SERVE_PARAMS)
+    plain = ags_search(idx, q, p, backend="jnp")
+    reset_counts()
+    res = ags_search(idx, q, p)
+    torch.cuda.synchronize()
+    counts["ags"] = kernel_counts()
+    check(counts["ags"]["fused_estimate"] > 0,
+          "ags_search never launched fused_estimate")
+    share = agree(res.ids, plain.ids)
+    check(share >= MIN_AGREE, f"AGS ids match the plain path on {share:.4f}")
+    print(f"[ags] launches {json.dumps(counts['ags'])}; ids equal to the "
+          f"plain path on {share:.4f} of 128 queries ({card})")
+
+    cert = {}
+    for backend in ("jnp", "auto"):
+        reset_counts()
+        _, ids, dists = search(idx.graph, q, p, with_candidates=True,
+                               backend=backend)
+        cert[backend] = theorem4_delta_prime(idx.graph, q, ids, dists, k=10,
+                                             delta=0.05, backend=backend)
+        torch.cuda.synchronize()
+        counts[f"certify_{backend}"] = kernel_counts()
+    check(counts["certify_auto"]["gather_l2_tiled"] > 0
+          and not any(counts["certify_jnp"].values()),
+          "the certificate's kernels and plain paths ran the wrong code")
+    found, dp = cert["auto"]
+    share = float((found == cert["jnp"][0]).float().mean())
+    check(share >= MIN_AGREE, f"certificate found matches the plain path on "
+          f"{share:.4f} of queries")
+    both = found & cert["jnp"][0]
+    check(torch.allclose(dp[both], cert["jnp"][1][both], rtol=1e-4, atol=0),
+          "δ′ of the kernels and the plain path disagree")
+    print(f"[certify] Theorem 4 at δ = 0.05: found on {float(found.float().mean()):.4f} "
+          f"of 128 queries, mean δ′ {float(dp[found].mean()):.4f}; found equal "
+          f"to the plain path on {share:.4f} ({card})")
+
+    mask = torch.as_tensor(
+        np.random.default_rng(3).random(idx.graph.n) < 0.1, device="cuda")
+    plain = filtered_search(idx.graph, q, mask, k=10, alpha=1.2,
+                            l_max=256, backend="jnp")
+    reset_counts()
+    res = filtered_search(idx.graph, q, mask, k=10, alpha=1.2, l_max=256)
+    torch.cuda.synchronize()
+    counts["filtered"] = kernel_counts()
+    got = res.ids[res.ids >= 0].long()
+    check(got.numel() > 0 and bool(mask[got].all()),
+          "filtered search returned an id that fails the mask")
+    share = agree(res.ids, plain.ids)
+    check(share >= MIN_AGREE,
+          f"filtered ids match the plain path on {share:.4f}")
+    print(f"[filtered] 10% mask: {got.numel()} ids returned, all pass; ids "
+          f"equal to the plain path on {share:.4f} of 128 queries; launches "
+          f"{json.dumps(counts['filtered'])} ({card})")
+
+
+def exact_build_phase(torch, card: str, counts: dict) -> None:
+    """Algorithm 2 on the card, then Theorem 1: a W = 1 greedy search from
+    the medoid for every corpus point returns that point at distance 0."""
+    import warnings
+
+    from repro_torch.core import build_exact, greedy_search
+    from repro_torch.data import clustered_vectors
+
+    base = torch.as_tensor(clustered_vectors(EXACT_N, 128, 48, seed=4),
+                           device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        g = build_exact(base, delta=0.05, device="cuda")
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    counts["exact_build"] = kernel_counts()
+    check(counts["exact_build"]["batched_l2"] > 0,
+          "build_exact never launched batched_l2")
+    res = greedy_search(g, base, k=1, l=1, max_hops=2048)
+    hit = res.ids[:, 0].long() == torch.arange(EXACT_N, device="cuda")
+    zero = res.dists[:, 0] == 0
+    deg = g.degrees().float()
+    print(f"[exact-build] n={EXACT_N} d=128 δ=0.05: {build_s:.1f} s, degree "
+          f"mean {float(deg.mean()):.2f} max {int(deg.max())} (cap "
+          f"{g.max_degree}); {[str(w.message) for w in caught]}; Theorem 1: "
+          f"{int((hit & zero).sum())}/{EXACT_N} points found at distance 0; "
+          f"launches {json.dumps(counts['exact_build'])} ({card})")
+    check(bool((hit & zero).all()), "Theorem 1 fails on the exact build")
+
+
+def baselines_phase(torch, card: str) -> None:
+    """Each of the five baseline builders at BASELINE_N, d = 128."""
+    from repro_torch.core import error_bounded_search
+    from repro_torch.core.baselines import BUILDERS
+    from repro_torch.core.build_approx import _bfs_reachable
+    from repro_torch.core.distances import brute_force_knn
+    from repro_torch.data import clustered_vectors
+
+    base = torch.as_tensor(clustered_vectors(BASELINE_N, 128, 48, seed=5),
+                           device="cuda")
+    queries = torch.as_tensor(clustered_vectors(256, 128, 48, seed=6),
+                              device="cuda")
+    _, gt = brute_force_knn(queries, base, 10)
+    for name, builder in BUILDERS.items():
+        t0 = time.perf_counter()
+        g = builder(base, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        M = 32                       # every builder's default degree
+        deg = g.degrees()
+        check(g.max_degree == M and int(deg.max()) <= M,
+              f"{name}: degree above {M}")
+        cut = int((~_bfs_reachable(g.neighbors, g.medoid)).sum())
+        reach = 1.0 - cut / BASELINE_N
+        check(reach >= MIN_REACH.get(name, MIN_REACH_REPAIRED),
+              f"{name}: only {reach:.4f} of nodes reachable from the medoid")
+        res = error_bounded_search(g, queries, k=10, alpha=1.2, l_max=256)
+        print(f"[baselines] {name}: n={BASELINE_N} built in {build_s:.1f} s, "
+              f"mean degree {float(deg.float().mean()):.2f}, {cut} nodes "
+              f"unreachable from the medoid, recall@10 "
+              f"{recall_at(res.ids, gt):.4f} ({card})")
+
+
+def mips_phase(torch, card: str, counts: dict) -> None:
+    """build_mips(quantized=True) and mips_search: d + 1 = 129 makes five
+    code words and a ragged exact tier."""
+    from repro_torch.core import BuildParams
+    from repro_torch.core.mips import build_mips, mips_search
+    from repro_torch.data import clustered_vectors
+
+    items = clustered_vectors(MIPS_N, 128, 48, seed=7)
+    queries = clustered_vectors(256, 128, 48, seed=8)
+    t0 = time.perf_counter()
+    mips = build_mips(items, BuildParams(**BUILD_PARAMS), quantized=True,
+                      device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(mips.index.codes.words == 5, "MIPS codes are not 5 words wide")
+    plain = mips_search(mips, queries, k=10, backend="jnp")
+    reset_counts()
+    res = mips_search(mips, queries, k=10)
+    torch.cuda.synchronize()
+    counts["mips"] = kernel_counts()
+    check(counts["mips"]["fused_estimate"] > 0,
+          "mips_search never launched fused_estimate")
+    share = agree(res.ids, plain.ids)
+    check(share >= MIN_AGREE, f"MIPS ids match the plain path on {share:.4f}")
+    scores = torch.as_tensor(queries, device="cuda") @ \
+        torch.as_tensor(items, device="cuda").T
+    gt = torch.topk(scores, 10, dim=1).indices
+    print(f"[mips] n={MIPS_N} d=128+1: built in {build_s:.1f} s; recall@10 "
+          f"against brute-force inner product {recall_at(res.ids, gt):.4f}; "
+          f"ids equal to the plain path on {share:.4f} of 256 queries; "
+          f"launches {json.dumps(counts['mips'])} ({card})")
 
 
 def _device_us(torch, event) -> float:
@@ -397,6 +792,7 @@ def _profiled(torch, fn, phase: str, out: Path) -> dict:
                 device_ms=device_us / 1e3 if device_us else None,
                 device_busy=(device_us / 1e6 / wall_s) if device_us else None,
                 hops=hops, kernel_launches=launches,
+                launches_per_hop=launches / max(hops, 1),
                 ms_per_hop=wall_s * 1e3 / max(hops, 1))
 
 
@@ -464,29 +860,41 @@ def main(argv=None) -> int:
           f"({', '.join(built) or 'already built'})")
 
     t_start = time.perf_counter()
-    rows = kernel_phase(torch, card)
-    t_kernels = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        print(f"[time] {name} {seconds[name]:.1f} s ({card})")
+        return out
+
+    rows = timed("kernels", kernel_phase, torch, card)
     if args.n < TARGET_N:
         print(f"[serve] n = {args.n:,}, cut from the {TARGET_N:,} target "
               "(SIFT1M's shape) to fit the run's time limit")
-    idx, vq, serve, counts = serve_phase(torch, args.n, card)
-    t_serve = time.perf_counter()
-    probe_exact_phase(torch, idx, vq, card, counts)
-    print(f"[time] kernels {t_kernels - t_start:.1f} s, serve (build and "
-          f"drain) {t_serve - t_kernels:.1f} s, probe and exact "
-          f"{time.perf_counter() - t_serve:.1f} s ({card})")
+    idx, vq, serve, counts = timed("serve", serve_phase, torch, args.n, card)
+    timed("probe_exact", probe_exact_phase, torch, idx, vq, card, counts)
+    timed("ags_certify_filtered", ags_certify_filtered_phase, torch, idx, vq,
+          card, counts)
+    timed("profile", profile_phase, torch, idx, vq,
+          ROOT / "build" / "profile", card)
+    del idx, vq
+    torch.cuda.empty_cache()
+    timed("exact_build", exact_build_phase, torch, card, counts)
+    timed("baselines", baselines_phase, torch, card)
+    timed("mips", mips_phase, torch, card, counts)
 
     kernels = []
     for name, path in REPORTED.items():
         r = dict(rows[(name, path)])
         r["launches"] = counts[path][name]
+        check(r["launches"] > 0, f"{name} never launched on its path {path}")
         kernels.append(r)
     print(f"[paths] launch counts by path: {json.dumps(counts)}")
-    t_prof = time.perf_counter()
-    profile_phase(torch, idx, vq, ROOT / "build" / "profile", card)
-    print(f"[time] profile {time.perf_counter() - t_prof:.1f} s ({card})")
     print(f"[serve-summary] {json.dumps(serve)} card={card} "
-          f"wall={time.perf_counter() - t_start:.1f}s")
+          f"wall={time.perf_counter() - t_start:.1f}s "
+          f"phases={json.dumps(seconds)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

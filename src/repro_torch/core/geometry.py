@@ -5,7 +5,9 @@ distances, as there.  ``select_neighbors`` is the sequential greedy
 selector of Algorithms 2 and 4: the loop over the L distance-sorted
 candidates stays a loop (each decision depends on the kept set), but each
 step runs for a whole block of nodes at once — the batch dimension the JAX
-package got from ``vmap``.
+package got from ``vmap`` — and its kept-to-candidate distances are one
+``batched_l2`` call (the CUDA kernel on the card, the plain difference form
+on the CPU).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Callable
 
 import torch
 
+from ..kernels.l2dist import ops as l2ops
 from .types import INVALID_ID
 
 
@@ -77,8 +80,7 @@ def select_neighbors(cand_vecs: torch.Tensor, cand_d2: torch.Tensor,
         ids = cand_ids[:, i]
         valid = (ids >= 0) & torch.isfinite(d2_uv) & (d2_uv > 0.0)
         # distances kept-node → candidate (padding rows are masked below)
-        diff = kept_vecs - v[:, None, :]
-        d2_wv = (diff * diff).sum(-1)
+        d2_wv = l2ops.batched_l2(kept_vecs, v)
         hit = occl(d2_uv[:, None], kept_d2, d2_wv, deltas[:, i, None])
         occluded = (hit & (kept_ids >= 0)).any(1)
         take = valid & ~occluded & (count < max_keep)

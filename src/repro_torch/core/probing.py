@@ -5,8 +5,9 @@ engine over the batch: per hop each query either *probes* its W best
 unprobed approximate candidates (exact distances in one fused gather+L2
 call over ``[B, W]`` ids) or *expands* its W best unvisited exact
 candidates (``B×W×M`` neighbor ids deduped against a packed visited
-bitset, RaBitQ estimates in one batched call over ``[B, W·M]`` ids — one
-``bitdot`` launch per hop with ``use_kernel=True``).  The NeedProbing rule
+bitset, RaBitQ estimates in one batched call over ``[B, W·M]`` ids — on a
+CUDA index one ``fused_estimate`` launch per hop, or one ``bitdot`` launch
+plus plain algebra with ``use_kernel=True``).  The NeedProbing rule
 (lines 22-28) decides per query; finished queries are masked no-ops.
 
 AGS (approximate greedy search + exact rerank) runs the generic
@@ -32,6 +33,7 @@ from .search import (
     batch_merge_topc,
     default_start,
     make_batch_dist_fn,
+    resolve_backend,
     resolve_beam_width,
     select_top_w,
 )
@@ -164,25 +166,49 @@ def _beam_probing_batch(neighbors: torch.Tensor, n_nodes: int,
                        saturated)
 
 
+def make_batch_approx_fn(index: EMQGIndex, queries: torch.Tensor,
+                         backend: str = "auto", use_kernel: bool = False
+                         ) -> Callable:
+    """batch_approx(ids int32[B, K]) → RaBitQ d² estimates f32[B, K] for
+    the query batch.
+
+    ``use_kernel`` plugs the bitdot kernel into the S₊ contraction (the
+    reference's plug; the algebra stays plain tensor code).  Otherwise
+    ``backend="jnp"`` runs the plain estimate on any device, and every other
+    backend runs ``fused_estimate``: the CUDA kernel on a CUDA index, the
+    plain version on a CPU index.
+    """
+    codes = index.codes
+    ctx = rabitq.prepare_query(codes, queries)
+    if use_kernel:
+        return lambda ids: rabitq.estimate_sqdist(
+            codes, ctx, ids, bitdot_fn=bitdot_ops.bitdot)
+    if resolve_backend(backend, index.device) == "jnp":
+        return lambda ids: rabitq.estimate_sqdist_plain(codes, ctx, ids)
+    return lambda ids: rabitq.estimate_sqdist(codes, ctx, ids)
+
+
 def probing_search(index: EMQGIndex, queries, params: SearchParams,
                    start: Optional[torch.Tensor] = None,
                    use_kernel: bool = False, with_candidates: bool = False,
                    backend: str = "auto"):
-    """Batched Algorithm 5 on the lock-step beam engine.  ``use_kernel``
+    """Batched Algorithm 5 on the lock-step beam engine.
+
+    ``backend`` selects both tiers' implementations: ``"jnp"`` is the plain
+    PyTorch path on any device, exact and approximate; ``"auto"`` is the
+    CUDA kernels on a CUDA index (``gather_l2_tiled`` and
+    ``fused_estimate``) and the plain path on the CPU (see
+    ``make_batch_dist_fn`` and ``make_batch_approx_fn``).  ``use_kernel``
     routes the S₊ contraction through the bitdot kernel (its plain version
-    on a CPU tensor); ``backend`` selects the exact-tier gather+L2
-    implementation (see ``make_batch_dist_fn``)."""
-    g, codes = index.graph, index.codes
+    on a CPU tensor) whatever the backend.
+    """
+    g = index.graph
     queries = as_queries(queries, g.device)
     B = queries.shape[0]
     if start is None:
         start = default_start(g.medoid, B, g.device)
     batch_exact = make_batch_dist_fn(g.vectors, backend)
-    bitdot_fn = bitdot_ops.bitdot if use_kernel else None
-    ctx = rabitq.prepare_query(codes, queries)
-
-    def batch_approx(ids):
-        return rabitq.estimate_sqdist(codes, ctx, ids, bitdot_fn=bitdot_fn)
+    batch_approx = make_batch_approx_fn(index, queries, backend, use_kernel)
 
     st = _beam_probing_batch(g.neighbors, g.n, batch_exact, batch_approx,
                              queries, start, params)
@@ -215,22 +241,20 @@ def ags_search(index: EMQGIndex, queries, params: SearchParams,
                start: Optional[torch.Tensor] = None,
                backend: str = "auto") -> SearchResult:
     """Batched AGS: the generic beam traversal on RaBitQ estimates, then one
-    fused exact rerank of the final candidate buffers.
+    fused exact rerank of the final candidate buffers.  ``backend`` selects
+    both tiers as in :func:`probing_search` (``"jnp"``: plain on any device).
 
     Counters: ``n_approx_comps`` is the traversal's estimator evaluations;
     ``n_dist_comps`` is the exact rerank cost (valid buffer entries).
     """
-    g, codes = index.graph, index.codes
+    g = index.graph
     queries = as_queries(queries, g.device)
     B = queries.shape[0]
     if start is None:
         start = default_start(g.medoid, B, g.device)
-    ctx = rabitq.prepare_query(codes, queries)
-
-    def batch_approx(qs, ids):
-        return rabitq.estimate_sqdist(codes, ctx, ids)
-
-    st = _beam_search_batch(g, queries, start, params, batch_approx)
+    approx = make_batch_approx_fn(index, queries, backend)
+    st = _beam_search_batch(g, queries, start, params,
+                            lambda qs, ids: approx(ids))
 
     # exact rerank of the whole final buffer, one fused call
     batch_exact = make_batch_dist_fn(g.vectors, backend)

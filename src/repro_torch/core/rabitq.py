@@ -20,7 +20,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..kernels.bitdot.ref import unpack_bits_ref
+from ..kernels.bitdot import ops as bitdot_ops
+from ..kernels.bitdot import ref as bitdot_ref
 from .types import RaBitQCodes, take_rows
 
 
@@ -48,7 +49,7 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
 
 def unpack_bits(codes: torch.Tensor, dim: int) -> torch.Tensor:
     """int32[..., W] → f32[..., dim] of ±1 signs."""
-    return 2.0 * unpack_bits_ref(codes, dim) - 1.0
+    return 2.0 * bitdot_ref.unpack_bits_ref(codes, dim) - 1.0
 
 
 def fit(vectors: torch.Tensor, rotation: torch.Tensor) -> RaBitQCodes:
@@ -91,26 +92,31 @@ def estimate_sqdist(codes: RaBitQCodes, ctx: QueryCtx, ids: torch.Tensor,
     """Estimated squared distances f32[B, K] for node ids int32[B, K]
     (-1 → +inf).
 
-    ``bitdot_fn(code_rows int32[B, K, W], q_unit f32[B, d]) → S₊ f32[B, K]``
-    defaults to the plain signs-times-query product; the serving layer plugs
-    in the CUDA kernel (``kernels.bitdot.ops.bitdot``).
+    With ``bitdot_fn=None`` the whole estimate is
+    ``kernels.bitdot.ops.fused_estimate``: the CUDA kernel on a CUDA index
+    (one launch, gathering by id), the plain signs-times-query form on a CPU
+    index.  ``bitdot_fn(code_rows int32[B, K, W], q_unit f32[B, d]) → S₊
+    f32[B, K]`` is the reference's plug for the S₊ contraction alone
+    (``kernels.bitdot.ops.bitdot`` with ``use_kernel=True``); the estimator
+    algebra then runs as plain tensor code.
     """
-    rows = take_rows(codes.codes, ids)                          # [B, K, W]
-    sum_q = ctx.sum_q[:, None]
     if bitdot_fn is None:
-        signs = unpack_bits(rows, codes.dim)                    # ±1
-        s_plus = 0.5 * (torch.bmm(signs, ctx.q_unit[:, :, None])[..., 0]
-                        + sum_q)
-    else:
-        s_plus = bitdot_fn(rows, ctx.q_unit)
-    ip_xq = (2.0 * s_plus - sum_q) / ctx.sqrt_d
-    ip_xo = torch.clamp_min(take_rows(codes.ip_xo, ids), 1e-6)
-    est_cos = ip_xq / ip_xo
-    nv = take_rows(codes.norms, ids)
-    norm_q = ctx.norm_q[:, None]
-    d2 = nv * nv + norm_q * norm_q - 2.0 * nv * norm_q * est_cos
-    d2 = torch.clamp_min(d2, 0.0)
-    return torch.where(ids >= 0, d2, torch.full_like(d2, float("inf")))
+        return bitdot_ops.fused_estimate(
+            codes.codes, codes.norms, codes.ip_xo, ids, ctx.q_unit,
+            ctx.sum_q, ctx.norm_q, ctx.sqrt_d)
+    s_plus = bitdot_fn(take_rows(codes.codes, ids), ctx.q_unit)
+    return bitdot_ref.estimate_from_s_plus(s_plus, ids, codes.norms,
+                                           codes.ip_xo, ctx.sum_q, ctx.norm_q,
+                                           ctx.sqrt_d)
+
+
+def estimate_sqdist_plain(codes: RaBitQCodes, ctx: QueryCtx,
+                          ids: torch.Tensor) -> torch.Tensor:
+    """:func:`estimate_sqdist`'s plain version on any device (the
+    ``backend="jnp"`` path of the searches)."""
+    return bitdot_ref.fused_estimate_ref(
+        codes.codes, codes.norms, codes.ip_xo, ids, ctx.q_unit, ctx.sum_q,
+        ctx.norm_q, ctx.sqrt_d)
 
 
 def estimator_error_bound(codes: RaBitQCodes, ids: torch.Tensor,

@@ -317,3 +317,54 @@ def error_bounded_search(graph: GraphIndex, queries, k: int, alpha: float,
     p = SearchParams(k=k, l0=k, l_max=l_max, l_step=l_step, alpha=alpha,
                      adaptive=True, max_hops=max_hops, beam_width=beam_width)
     return search(graph, queries, p, start=start, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Theorem-4 instrumentation (Exp-6 / Exp-7).
+# ---------------------------------------------------------------------------
+
+def local_optimum_mask(graph: GraphIndex, queries, cand_ids: torch.Tensor,
+                       backend: str = "auto") -> torch.Tensor:
+    """bool[B, C]: candidate c is a local optimum w.r.t. its query (no
+    out-neighbor of c is strictly closer to q than c).
+
+    Batched over queries and candidates: the candidate distances and the
+    ``[B, C·M]`` neighbor distances are two calls of ``backend``'s batched
+    gather+L2 (``gather_l2_tiled`` on the card), with no per-candidate loop.
+    """
+    queries = as_queries(queries, graph.device)
+    cand_ids = torch.as_tensor(cand_ids, device=graph.device).to(torch.int32)
+    B, C = cand_ids.shape
+    dist = make_batch_dist_fn(graph.vectors, backend)
+    d2_c = dist(queries, cand_ids)                                # [B, C]
+    nbrs = graph.neighbors[cand_ids.clamp_min(0).long()]           # [B, C, M]
+    nbrs = torch.where(cand_ids[:, :, None] >= 0, nbrs,
+                       torch.full_like(nbrs, INVALID_ID))
+    d2_n = dist(queries, nbrs.reshape(B, -1)).reshape(nbrs.shape)  # +inf pads
+    return (cand_ids >= 0) & (d2_n >= d2_c[:, :, None]).all(-1)
+
+
+def theorem4_delta_prime(graph: GraphIndex, queries, cand_ids: torch.Tensor,
+                         cand_dists: torch.Tensor, k: int, delta: float,
+                         backend: str = "auto"):
+    """Per-query (found bool[B], δ′ f32[B]) per Theorem 4.
+
+    δ′ = δ · d(q, u) / d(q, r_(k)) with u the *farthest* local-optimum node
+    in the final candidate set outside the returned top-k (wider search ⇒
+    larger d(q, u) ⇒ tighter bound — Exp-7's observation).  ``backend``
+    selects the distance implementation, as in :func:`search`.
+    """
+    is_opt = local_optimum_mask(graph, queries, cand_ids, backend)
+    cand_ids = torch.as_tensor(cand_ids, device=graph.device)
+    cand_dists = torch.as_tensor(cand_dists, device=graph.device)
+    pos = torch.arange(cand_ids.shape[1], device=graph.device)[None, :]
+    eligible = is_opt & (pos >= k) & (cand_ids >= 0) & \
+        torch.isfinite(cand_dists)
+    d_u = torch.where(eligible, cand_dists,
+                      torch.full_like(cand_dists, float("-inf"))).amax(1)
+    found = eligible.any(1)
+    d_rk = cand_dists[:, k - 1]
+    delta_prime = torch.where(
+        found, delta * d_u / torch.clamp_min(d_rk, 1e-30),
+        torch.zeros_like(d_u))
+    return found, delta_prime

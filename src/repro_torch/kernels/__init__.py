@@ -1,9 +1,12 @@
 """Hand-written CUDA kernels for the ANN distance hot path (``sm_90a``).
 
     l2dist/  — fused gather + squared L2 (exact tier): ``gather_l2`` and
-               ``gather_l2_tiled``, from ``csrc/gather_l2.cu``
-    bitdot/  — packed 1-bit RaBitQ S₊ contraction (approximate tier), from
-               ``csrc/bitdot.cu``
+               ``gather_l2_tiled``, from ``csrc/gather_l2.cu``; and
+               ``batched_l2`` (row tiles against one query line each: the
+               builders' occlusion test), from ``csrc/batched_l2.cu``
+    bitdot/  — packed 1-bit RaBitQ S₊ contraction, from ``csrc/bitdot.cu``;
+               and ``fused_estimate`` (the whole RaBitQ estimate, gathered
+               by id: the approximate tier), from ``csrc/fused_estimate.cu``
 
 Each has ``ops.py`` (the wrapper: checks, launch count, CUDA launch or the
 plain version on a CPU tensor) and ``ref.py`` (the plain PyTorch version).

@@ -1,4 +1,5 @@
-"""Wrappers of the CUDA gather-L2 kernels (``csrc/gather_l2.cu``).
+"""Wrappers of the CUDA gather-L2 kernels (``csrc/gather_l2.cu``) and of
+the CUDA batched-L2 kernel (``csrc/batched_l2.cu``).
 
 ``gather_l2_tiled`` replaces ``gather_l2_tiled_pallas`` and ``gather_l2``
 replaces ``gather_l2_pallas`` (``src/repro/kernels/l2dist/l2dist.py``).
@@ -11,6 +12,12 @@ raises if the launch fails; on a CPU tensor it runs the plain version in
 ``ref.py``.  Nothing else: no fallback hides the kernel.  ``base`` must be
 float32 and contiguous already — the wrapper never copies it, since the
 base is the whole dataset (512 MB at n = 1M, d = 128).
+
+``batched_l2`` replaces ``batched_l2_pallas`` (same file): rows
+``[B, M, d]`` against one query line each, ``[B, d]`` → ``f32[B, M]``, by
+the difference form.  It is the kept-to-candidate distance of
+``core.geometry.select_neighbors``, the occlusion test of every builder.
+bf16 inputs are cast to f32 first, as the JAX package's kernel call does.
 
 ``LAUNCHES`` counts kernel launches per entry point; only a CUDA launch
 adds to it.
@@ -25,7 +32,7 @@ import torch
 from .. import _build
 from . import ref
 
-LAUNCHES = {"gather_l2": 0, "gather_l2_tiled": 0}
+LAUNCHES = {"gather_l2": 0, "gather_l2_tiled": 0, "batched_l2": 0}
 _MAX_D = 12288          # the query line must fit 48 KB of shared memory
 _MAX_B = 65535          # grid.y
 
@@ -88,3 +95,41 @@ def gather_l2_tiled(base: torch.Tensor, ids: torch.Tensor,
     """Same contract as :func:`gather_l2`; eight rows of one query line per
     kernel block, the query line shared through shared memory."""
     return _dispatch("gather_l2_tiled", base, ids, queries)
+
+
+def batched_l2(rows: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """rows f32/bf16[B, M, d], queries f32/bf16[B, d] → squared L2
+    f32[B, M].  On the card ``rows`` is used as it is if it is float32 and
+    contiguous, and a query line may have any stride between lines."""
+    if rows.dim() != 3 or queries.dim() != 2:
+        raise ValueError("expected rows [B, M, d] and queries [B, d]")
+    B, M, d = rows.shape
+    if tuple(queries.shape) != (B, d):
+        raise ValueError(f"queries {tuple(queries.shape)} do not match rows "
+                         f"{tuple(rows.shape)}")
+    ok = (torch.float32, torch.bfloat16)
+    if rows.dtype not in ok or queries.dtype not in ok:
+        raise TypeError("rows and queries must be float32 or bfloat16")
+    if rows.device != queries.device:
+        raise ValueError("rows and queries must be on one device")
+    if rows.device.type == "cpu":
+        return ref.batched_l2_ref(rows, queries)
+    if rows.device.type != "cuda":
+        raise ValueError(f"no batched_l2 kernel for device {rows.device}")
+    if d > _MAX_D or B > _MAX_B:
+        raise ValueError(f"d={d} or B={B} beyond what the kernel takes")
+    rows = rows.float().contiguous()
+    queries = queries.float()
+    if queries.stride(1) != 1:
+        queries = queries.contiguous()
+    out = torch.empty((B, M), dtype=torch.float32, device=rows.device)
+    fn = _build.load("batched_l2").batched_l2
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + \
+        [ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(rows.data_ptr(), queries.data_ptr(), out.data_ptr(), B, M, d,
+            queries.stride(0),
+            torch.cuda.current_stream(rows.device).cuda_stream)
+    _build.check(rc, "batched_l2")
+    LAUNCHES["batched_l2"] += 1
+    return out

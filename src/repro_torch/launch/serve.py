@@ -20,7 +20,9 @@ import torch
 
 from ..core import BuildParams, SearchParams, build_emqg
 from ..core.distances import brute_force_knn
+from ..core.types import resolve_device
 from ..data import clustered_vectors
+from ..kernels import _build
 from ..obs import (
     MetricsRegistry,
     Tracer,
@@ -66,6 +68,9 @@ def main(argv=None) -> int:
         registry = declare_serve_metrics(MetricsRegistry())
         tracer = Tracer()
 
+    if resolve_device(args.device).type == "cuda":
+        # compile every kernel now, so that no nvcc runs in the timed parts
+        _build.build_all()
     print(f"[serve] building δ-EMQG over n={args.n} d={args.dim} on "
           f"{args.device} …")
     base = clustered_vectors(args.n, args.dim, 48, seed=0)

@@ -9,8 +9,12 @@ a machine that has only PyTorch:
 Each kernel is held against its plain PyTorch version on the same card
 tensors: gather-L2 to rtol 1e-5 / atol 1e-5 (the same float32 squares
 summed in another order), bitdot to rtol 1e-5 / atol 1e-4 (the JAX
-kernel test's tolerance).  The engines on the card must give the ids of
-their plain paths on ≥ 99% of queries (float sum order can swap a tie).
+kernel test's tolerance), fused_estimate to rtol 1e-4 / atol 1e-3 (the JAX
+fused-estimate test's tolerance; the kernel sums S₊ over set bits, the
+plain version over ±1 signs), batched_l2 to rtol 1e-5 / atol 1e-4 in f32
+(and the same on bf16 inputs, which both cast to f32 first).  The engines
+on the card must give the ids of their plain paths on ≥ 99% of queries
+(float sum order can swap a tie).
 """
 
 import numpy as np
@@ -18,8 +22,10 @@ import pytest
 import torch
 
 from repro_torch.core import BuildParams, SearchParams, build_emqg
-from repro_torch.core import probing_search, search
+from repro_torch.core import ags_search, build_exact, probing_search, search
+from repro_torch.core import rabitq, theorem4_delta_prime
 from repro_torch.data import clustered_vectors
+from repro_torch.kernels import _build
 from repro_torch.kernels.bitdot import ops as bitdot_ops
 from repro_torch.kernels.bitdot import ref as bitdot_ref
 from repro_torch.kernels.l2dist import ops as l2ops
@@ -27,6 +33,8 @@ from repro_torch.kernels.l2dist import ref as l2ref
 
 L2_SHAPES = [(2, 16, 24), (4, 32, 128), (1, 7, 65)]
 BITDOT_SHAPES = [(8, 32), (100, 100), (300, 128), (17, 257)]
+ESTIMATE_DIMS = [128, 129, 200]           # W = 4, 5 (one bit in the last), 7
+BATCHED_L2_SHAPES = [(1, 8, 16), (4, 24, 100), (3, 17, 33)]
 
 
 def _l2_inputs(B, M, d, seed=7, n=200):
@@ -44,6 +52,39 @@ def _codes(m, d, seed):
     W = (d + 31) // 32
     codes = rng.integers(0, 2**32, (m, W), dtype=np.uint64).astype(np.uint32)
     return codes, rng.normal(size=(d,)).astype(np.float32)
+
+
+def _estimate_inputs(B, K, d, n=300, seed=0):
+    """A code table, its scalars, ids with invalid slots, and a batched
+    query context (q, Σq, ‖q − c‖) as numpy arrays."""
+    codes, _ = _codes(n, d, seed)
+    rng = np.random.default_rng(seed + 1)
+    norms = (0.5 + np.abs(rng.normal(size=n))).astype(np.float32)
+    ip_xo = (0.5 + 0.4 * rng.random(n)).astype(np.float32)
+    ids = rng.integers(0, n, (B, K)).astype(np.int32)
+    ids[0, 0] = -1
+    ids[-1, K // 2:] = -1
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    norm_q = (1.0 + rng.random(B)).astype(np.float32)
+    return codes, norms, ip_xo, ids, q, norm_q
+
+
+def _estimate_args(inputs, device):
+    """fused_estimate's tensor arguments on ``device`` (codes as the int32
+    view, Σq from q, √d from d)."""
+    codes, norms, ip_xo, ids, q, norm_q = inputs
+    t = [torch.from_numpy(x).to(device) for x in
+         (codes.view(np.int32), norms, ip_xo, ids, q)]
+    sum_q = t[4].sum(-1)
+    sqrt_d = torch.tensor(float(q.shape[1]), device=device).sqrt()
+    return (*t, sum_q, torch.from_numpy(norm_q).to(device), sqrt_d)
+
+
+def _batched_l2_inputs(B, M, d, dtype=torch.float32, seed=None):
+    rng = np.random.default_rng(B * 1000 + M + d if seed is None else seed)
+    rows = rng.normal(size=(B, M, d)).astype(np.float32)
+    qs = rng.normal(size=(B, d)).astype(np.float32)
+    return (torch.from_numpy(rows).to(dtype), torch.from_numpy(qs).to(dtype))
 
 
 @pytest.fixture
@@ -82,6 +123,62 @@ def test_bitdot_kernel_on_card(cuda, m, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", ESTIMATE_DIMS)
+def test_fused_estimate_kernel_on_card(cuda, d):
+    args = _estimate_args(_estimate_inputs(5, 70, d, seed=d), cuda)
+    ids = args[3]
+    before = bitdot_ops.LAUNCHES["fused_estimate"]
+    out = bitdot_ops.fused_estimate(*args)
+    torch.cuda.synchronize()
+    assert bitdot_ops.LAUNCHES["fused_estimate"] == before + 1
+    assert torch.isinf(out[ids < 0]).all()
+    torch.testing.assert_close(out, bitdot_ref.fused_estimate_ref(*args),
+                               rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,M,d", BATCHED_L2_SHAPES + [(2, 25, 128),
+                                                         (3, 9, 129)])
+def test_batched_l2_kernel_on_card(cuda, B, M, d, dtype):
+    rows, qs = (x.to(cuda) for x in _batched_l2_inputs(B, M, d, dtype))
+    before = l2ops.LAUNCHES["batched_l2"]
+    out = l2ops.batched_l2(rows, qs)
+    torch.cuda.synchronize()
+    assert l2ops.LAUNCHES["batched_l2"] == before + 1
+    torch.testing.assert_close(out, l2ref.batched_l2_ref(rows, qs),
+                               rtol=1e-5, atol=1e-4)
+    # a query line that is a column slice of a wider tensor (the selector's
+    # candidate step) is read in place
+    wide = torch.randn((B, 3, d), device=cuda, dtype=dtype)
+    out = l2ops.batched_l2(rows, wide[:, 1])
+    torch.testing.assert_close(out, l2ref.batched_l2_ref(rows, wide[:, 1]),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_estimate_sqdist_raises_if_the_kernel_cannot_launch(cuda, monkeypatch):
+    """A refused launch raises; nothing falls back to the plain version."""
+    codes, norms, ip_xo, ids, q, _, _, _ = _estimate_args(
+        _estimate_inputs(2, 8, 64), cuda)
+    rq = rabitq.RaBitQCodes(codes=codes, norms=norms, ip_xo=ip_xo,
+                            rotation=torch.eye(64, device=cuda),
+                            center=torch.zeros(64, device=cuda), dim=64)
+    ctx = rabitq.prepare_query(rq, q)
+
+    class Refused:
+        @staticmethod
+        def fused_estimate(*args):
+            return 9                    # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(_build, "load", lambda name: Refused())
+    before = bitdot_ops.LAUNCHES["fused_estimate"]
+    with pytest.raises(RuntimeError, match="fused_estimate"):
+        rabitq.estimate_sqdist(rq, ctx, ids)
+    assert bitdot_ops.LAUNCHES["fused_estimate"] == before
+
+
+@pytest.mark.cuda
 def test_engines_on_card_match_their_plain_paths(cuda):
     base = clustered_vectors(3000, 32, 16, seed=0)
     queries = clustered_vectors(64, 32, 16, seed=1)
@@ -100,3 +197,41 @@ def test_engines_on_card_match_their_plain_paths(cuda):
     assert bitdot_ops.LAUNCHES["bitdot"] > before
     plain = probing_search(idx, queries, p, use_kernel=False, backend="jnp")
     assert (kern.ids == plain.ids).all(1).float().mean().item() >= 0.99
+    # the default path estimates with fused_estimate; backend="jnp" is plain
+    # on both tiers
+    for engine in (probing_search, ags_search):
+        before = dict(bitdot_ops.LAUNCHES, **l2ops.LAUNCHES)
+        plain = engine(idx, queries, p, backend="jnp")
+        assert dict(bitdot_ops.LAUNCHES, **l2ops.LAUNCHES) == before
+        kern = engine(idx, queries, p)
+        assert bitdot_ops.LAUNCHES["fused_estimate"] > \
+            before["fused_estimate"]
+        assert bitdot_ops.LAUNCHES["bitdot"] == before["bitdot"]
+        assert (kern.ids == plain.ids).all(1).float().mean().item() >= 0.99
+
+
+@pytest.mark.cuda
+def test_exact_build_and_certificate_on_card(cuda):
+    """build_exact launches batched_l2; Theorem 1 holds on the card; the
+    Theorem-4 certificate with the kernels equals the plain one."""
+    base = clustered_vectors(600, 32, 12, seed=2)
+    before = l2ops.LAUNCHES["batched_l2"]
+    g = build_exact(base, delta=0.1, device=cuda)
+    assert l2ops.LAUNCHES["batched_l2"] > before
+    res = search(g, base, SearchParams(k=1, l0=1, l_max=1, adaptive=False,
+                                       max_hops=2048))
+    assert (res.ids[:, 0].cpu().numpy() == np.arange(600)).all()
+    assert (res.dists[:, 0] == 0).all()
+    queries = clustered_vectors(64, 32, 12, seed=3)
+    p = SearchParams(k=5, l0=5, l_max=64, alpha=2.0, adaptive=True,
+                     max_hops=2048)
+    out = {}
+    for backend in ("auto", "jnp"):
+        _, ids, dists = search(g, queries, p, with_candidates=True,
+                               backend=backend)
+        out[backend] = theorem4_delta_prime(g, queries, ids, dists, k=5,
+                                            delta=0.1, backend=backend)
+    assert (out["auto"][0] == out["jnp"][0]).float().mean().item() >= 0.99
+    both = out["auto"][0] & out["jnp"][0]
+    torch.testing.assert_close(out["auto"][1][both], out["jnp"][1][both],
+                               rtol=1e-4, atol=0)

@@ -8,7 +8,10 @@ kernels themselves are held against the plain versions in
 
 Tolerances: the gather-L2 paths sum the same float32 squares in another
 order (rtol 1e-5, atol 1e-5); bitdot uses the JAX kernel test's rtol 1e-5 /
-atol 1e-4.
+atol 1e-4, fused_estimate its rtol 1e-4 / atol 1e-3.  batched_l2's plain
+version takes the difference form and the JAX kernel the norm identity:
+rtol 1e-5 / atol 1e-4 in f32 (the identity's cancellation at |r|² + |q|² ≈
+2d), and the JAX kernel test's 5e-2 on bf16 inputs.
 """
 
 import jax.numpy as jnp
@@ -16,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 from repro.kernels.bitdot.ops import bitdot as ref_bitdot
+from repro.kernels.bitdot.ops import fused_estimate as ref_fused_estimate
 from repro.kernels.l2dist import ops as ref_l2ops
 
 from repro_torch.core.search import make_batch_dist_fn, resolve_backend
@@ -25,7 +29,17 @@ from repro_torch.kernels.bitdot import ref as bitdot_ref
 from repro_torch.kernels.l2dist import ops as l2ops
 from repro_torch.kernels.l2dist import ref as l2ref
 
-from test_torch_cuda import BITDOT_SHAPES, L2_SHAPES, _codes, _l2_inputs
+from test_torch_cuda import (
+    BATCHED_L2_SHAPES,
+    BITDOT_SHAPES,
+    ESTIMATE_DIMS,
+    L2_SHAPES,
+    _batched_l2_inputs,
+    _codes,
+    _estimate_args,
+    _estimate_inputs,
+    _l2_inputs,
+)
 
 # several test workers share the host's cores; one intra-op thread each
 # keeps them from oversubscribing it
@@ -56,6 +70,42 @@ def test_bitdot_matches_reference(m, d):
                             torch.from_numpy(q)[None])[0].numpy()
     assert bitdot_ops.LAUNCHES == before
     np.testing.assert_allclose(out, expect, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", ESTIMATE_DIMS)
+def test_fused_estimate_matches_reference(d):
+    """Gathered by id in the port; the JAX kernel (interpret mode) takes the
+    rows gathered per query, and its pad rows are masked here."""
+    inputs = _estimate_inputs(4, 40, d, seed=d)
+    codes, norms, ip_xo, ids, q, norm_q = inputs
+    expect = []
+    for b in range(ids.shape[0]):
+        safe = np.maximum(ids[b], 0)
+        e = np.asarray(ref_fused_estimate(
+            jnp.asarray(codes[safe]), jnp.asarray(norms[safe]),
+            jnp.asarray(ip_xo[safe]), jnp.asarray(q[b]),
+            jnp.float32(norm_q[b]), d, interpret=True))
+        expect.append(np.where(ids[b] >= 0, e, np.inf))
+    before = dict(bitdot_ops.LAUNCHES)
+    out = bitdot_ops.fused_estimate(*_estimate_args(inputs, "cpu")).numpy()
+    assert bitdot_ops.LAUNCHES == before
+    assert np.isinf(out[ids < 0]).all()
+    np.testing.assert_allclose(out, np.stack(expect), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,M,d", BATCHED_L2_SHAPES)
+def test_batched_l2_matches_reference(B, M, d, dtype):
+    rows, qs = _batched_l2_inputs(B, M, d, getattr(torch, dtype))
+    expect = np.asarray(ref_l2ops.batched_l2(
+        jnp.asarray(rows.float().numpy()).astype(dtype),
+        jnp.asarray(qs.float().numpy()).astype(dtype)))
+    before = dict(l2ops.LAUNCHES)
+    out = l2ops.batched_l2(rows, qs)
+    assert l2ops.LAUNCHES == before
+    assert out.dtype == torch.float32
+    tol = (1e-5, 1e-4) if dtype == "float32" else (5e-2, 5e-2)
+    np.testing.assert_allclose(out.numpy(), expect, rtol=tol[0], atol=tol[1])
 
 
 def test_int32_view_is_bit_exact():
@@ -101,6 +151,20 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         bitdot_ops.bitdot(torch.from_numpy(codes.view(np.int32))[None],
                           torch.zeros(1, 65))
+    args = list(_estimate_args(_estimate_inputs(2, 8, 64), "cpu"))
+    bad = args.copy()
+    bad[3] = bad[3].long()                       # ids must be int32
+    with pytest.raises(TypeError):
+        bitdot_ops.fused_estimate(*bad)
+    bad = args.copy()
+    bad[4] = torch.zeros(2, 65)                  # d > 32·W
+    with pytest.raises(ValueError):
+        bitdot_ops.fused_estimate(*bad)
+    rows, qs = _batched_l2_inputs(2, 8, 16)
+    with pytest.raises(TypeError):
+        l2ops.batched_l2(rows.double(), qs)
+    with pytest.raises(ValueError):
+        l2ops.batched_l2(rows, qs[:, :8])
 
 
 def test_missing_nvcc_raises(monkeypatch):

@@ -6,7 +6,9 @@ At beam_width 1 the port meets the parity bar: ids identical, distances to
 ``n_encounters``, ``final_l`` and ``saturated`` identical.  At W = 4 the
 engines go through the oracle checks of ``tests/test_conformance.py``:
 the (1/δ) bound on an exact Alg.-2 graph, honesty, and the metamorphic
-case of a query equal to a corpus point.
+case of a query equal to a corpus point.  The Theorem-4 probes, the exact
+Alg.-2 build, filtered search and MIPS search are held to the reference on
+the same inputs.
 """
 
 import jax
@@ -23,21 +25,31 @@ from repro.core import error_bounded_probing_search as ref_eb_probing
 from repro.core import error_bounded_search as ref_eb_search
 from repro.core import greedy_search as ref_greedy
 from repro.core import memory_footprint as ref_memory_footprint
+from repro.core import local_optimum_mask as ref_local_optimum_mask
 from repro.core import probing_search as ref_probing
 from repro.core import search as ref_search
+from repro.core import theorem4_delta_prime as ref_theorem4
 from repro.core.emqg import from_graph as ref_from_graph
+from repro.core.filtered import filtered_search as ref_filtered_search
+from repro.core.mips import build_mips as ref_build_mips
+from repro.core.mips import mips_search as ref_mips_search
 from repro.testing.oracle import check_delta_bound, exact_knn
 
 from repro_torch.core import (
     SearchParams,
     ags_search,
+    build_exact,
     error_bounded_probing_search,
     error_bounded_search,
     greedy_search,
+    local_optimum_mask,
     memory_footprint,
     probing_search,
     search,
+    theorem4_delta_prime,
 )
+from repro_torch.core.filtered import filtered_search
+from repro_torch.core.mips import MIPSIndex, ip_from_l2, mips_search
 from repro_torch.interop import index_from_numpy
 
 from conftest import gmm
@@ -254,3 +266,111 @@ def test_entry_point_wrappers_parity_w1(approx, entry):
 def test_memory_footprint_matches_reference(approx):
     assert memory_footprint(approx["port"]) == \
         ref_memory_footprint(approx["ref"])
+
+
+# ---------------------------------------------------------------------------
+# Theorem-4 probes and the exact Alg.-2 build, on the exact fixture.
+# ---------------------------------------------------------------------------
+
+def _candidates(exact, k=K):
+    p = dict(k=k, l0=k, l_max=48, alpha=2.0, adaptive=True, max_hops=512)
+    q = exact["queries"]
+    _, ids, dists = search(exact["port"].graph, q, SearchParams(**p),
+                           with_candidates=True, backend="jnp")
+    return q, ids, dists
+
+
+def test_local_optimum_mask_matches_reference(exact):
+    q, ids, _ = _candidates(exact)
+    ids = ids.clone()
+    ids[:, 3] = torch.arange(ids.shape[0], dtype=torch.int32) * 7  # any id
+    ids[0, 1] = -1
+    r = ref_local_optimum_mask(exact["ref"].graph, jnp.asarray(q),
+                               jnp.asarray(ids.numpy()))
+    t = local_optimum_mask(exact["port"].graph, q, ids, backend="jnp")
+    np.testing.assert_array_equal(t.numpy(), np.asarray(r))
+    assert t.any() and not t.all()
+
+
+def test_theorem4_delta_prime_matches_reference(exact):
+    q, ids, dists = _candidates(exact)
+    r_found, r_dp = ref_theorem4(exact["ref"].graph, jnp.asarray(q),
+                                 jnp.asarray(ids.numpy()),
+                                 jnp.asarray(dists.numpy()), k=K, delta=DELTA)
+    found, dp = theorem4_delta_prime(exact["port"].graph, q, ids, dists, k=K,
+                                     delta=DELTA, backend="jnp")
+    np.testing.assert_array_equal(found.numpy(), np.asarray(r_found))
+    assert found.float().mean() > 0.5
+    np.testing.assert_allclose(dp.numpy(), np.asarray(r_dp), rtol=1e-6)
+
+
+def _without_self(nbr):
+    """Neighbor rows with the row's own id removed (order kept, -1 tail)."""
+    out = np.full_like(nbr, -1)
+    for u, row in enumerate(nbr):
+        keep = row[(row >= 0) & (row != u)]
+        out[u, :keep.size] = keep
+    return out
+
+
+def test_build_exact_matches_reference(exact):
+    """Neighbor lists identical to the reference's, apart from the
+    reference's self-loops (ROADMAP C.4): it admits u into N(u) where the
+    norm identity rounds d²(u, u) above 0, which depends on the last bits of
+    the matmul; the port gives u the distance 0 and never admits it."""
+    ref = np.asarray(exact["ref"].graph.neighbors)
+    g = build_exact(exact["base"], delta=DELTA, device="cpu")
+    nbr = g.neighbors.numpy()
+    assert (nbr == _without_self(nbr)).all()           # no self-loops
+    assert (ref != _without_self(ref)).any(1).sum() > 0
+    np.testing.assert_array_equal(nbr, _without_self(ref))
+    assert g.medoid == int(exact["ref"].graph.medoid)
+    assert (g.kind, g.delta) == (exact["ref"].graph.kind, DELTA)
+
+
+# ---------------------------------------------------------------------------
+# Filtered and MIPS search on reference-built indexes (W = 1).
+# ---------------------------------------------------------------------------
+
+def test_filtered_search_parity_w1(approx):
+    q = approx["queries"]
+    mask = np.random.default_rng(4).random(approx["base"].shape[0]) < 0.3
+    r = ref_filtered_search(approx["ref"].graph, jnp.asarray(q), mask, k=K,
+                            alpha=1.2, l_max=64)
+    t = filtered_search(approx["port"].graph, q, mask, k=K, alpha=1.2,
+                        l_max=64, backend="jnp")
+    ids = t.ids.numpy()
+    assert mask[ids[ids >= 0]].all()
+    np.testing.assert_array_equal(ids, np.asarray(r.ids))
+    np.testing.assert_allclose(t.dists.numpy(), np.asarray(r.dists),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(t.n_hops.numpy(), np.asarray(r.n_hops))
+
+
+@pytest.fixture(scope="module")
+def mips_ref():
+    items = gmm(500, 16, 8, seed=41)
+    queries = gmm(12, 16, 8, seed=42)
+    from repro.core import BuildParams as RBP
+    bp = RBP(max_degree=12, beam_width=24, t=12, iters=2, block=256)
+    return items, queries, {quantized: ref_build_mips(items, bp, quantized)
+                            for quantized in (False, True)}
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_mips_search_parity_w1(mips_ref, quantized):
+    """The augmented width d + 1 = 17 gives one code word with 17 bits set
+    at most, and a ragged row for the exact tier."""
+    items, queries, built = mips_ref
+    ref = built[quantized]
+    port = MIPSIndex(index=to_port(ref.index), radius=ref.radius,
+                     dim=ref.dim)
+    assert port.quantized == quantized
+    r = ref_mips_search(ref, queries, k=K, alpha=1.2, l_max=64)
+    t = mips_search(port, queries, k=K, alpha=1.2, l_max=64, backend="jnp")
+    np.testing.assert_array_equal(t.ids.numpy(), np.asarray(r.ids))
+    np.testing.assert_allclose(t.dists.numpy(), np.asarray(r.dists),
+                               rtol=1e-4, atol=1e-4)
+    scores = ip_from_l2(queries, t.dists, port.radius)
+    want = np.take_along_axis(queries @ items.T, t.ids.numpy(), axis=1)
+    np.testing.assert_allclose(scores, want, rtol=1e-3, atol=1e-2)

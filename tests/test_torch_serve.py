@@ -23,6 +23,8 @@ from repro.obs import MetricsRegistry as RefRegistry
 from repro.serve import AnnServer as RefAnnServer
 
 from repro_torch.core import BuildParams, SearchParams, build_approx, build_emqg
+from repro_torch.core import baselines, build_exact
+from repro_torch.core.mips import build_mips
 from repro_torch.interop import index_from_numpy
 from repro_torch.launch import serve as port_serve
 from repro_torch.obs import MetricsRegistry
@@ -114,6 +116,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         build_approx(base, BuildParams(max_degree=4, beam_width=8, iters=1))
     with pytest.raises(RuntimeError, match="cuda"):
         build_emqg(base, BuildParams(max_degree=4, beam_width=8, iters=1))
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_exact(base)
+    for name, builder in baselines.BUILDERS.items():
+        with pytest.raises(RuntimeError, match="cuda"):
+            builder(base)
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_mips(base, BuildParams(max_degree=4, beam_width=8, iters=1))
     with pytest.raises(RuntimeError, match="cuda"):
         index_from_numpy(base, np.zeros((64, 4), np.int32), 0)
     g = index_from_numpy(base, np.zeros((64, 4), np.int32), 0, device="cpu")
