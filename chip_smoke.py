@@ -58,7 +58,24 @@ non-zero and prints no result line):
                repair), recall@10 of ``error_bounded_search`` printed;
 9. mips     — ``build_mips(quantized=True)`` at n = 50,000 and
                ``mips_search`` for 256 queries: recall@10 against brute-force
-               inner product, ids against the plain path.
+               inner product, ids against the plain path;
+10. lm      — smollm-135m at full width in bf16, weights from a seeded
+               ``torch.Generator``: the ``flash_attention`` kernel against
+               the plain blockwise attention at the prefill's shape (q [1,
+               32768, 9, 64], k/v [1, 32768, 3, 64], causal), timed beside
+               ``scaled_dot_product_attention`` as its library yardstick,
+               plus a windowed GQA shape and a ragged S against the
+               full-matrix version, each element to half a bf16 ulp (the
+               plain version in f32; a key tile cut from the last row must
+               break it); ``transformer.prefill`` over one prompt of 32,768
+               tokens (``prefill_32k``'s sequence, the batch cut from 32
+               to 1: at 32 the [B, S, V] f32 logits alone would be 206 GB),
+               30 kernel launches; the prefill with the kernel against the
+               plain attention at S = 4,096; and ``lm_server.generate`` for
+               8 prompts of 128 tokens, greedy, 32 new tokens, with
+               ``decode_step``'s logits after the prompt against
+               ``prefill``'s.  Controls with attention or the decode cache
+               broken on purpose must break the logit bound.
 
 Every kernel's launch count is set to 0 just before the path that runs it
 and read just after; a kernel that path never launched fails the run.  The
@@ -71,6 +88,7 @@ device JSON.  It needs one card and exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -82,6 +100,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_TC_FLOP_PER_S = 989e12    # H100 SXM bf16 on the tensor cores, dense
 SERVE_PARAMS = dict(k=10, l0=10, l_max=256, alpha=1.2, adaptive=True,
                     max_hops=2048)
 BUILD_PARAMS = dict(max_degree=24, beam_width=64, t=32, iters=2, block=1024,
@@ -99,6 +118,21 @@ BASELINE_N = 20_000            # five builders: cut to fit the limit
 MIN_REACH = {"knn": 0.0}
 MIN_REACH_REPAIRED = 0.99
 MIPS_N = 50_000                # a second δ-EMQG build: cut to fit the limit
+LM_ARCH = "smollm-135m"
+LM_CHECK_SEQ = 4_096           # the prefill with the kernel vs plain attention
+LM_GEN = dict(batch=8, prompt=128, max_new=32, max_seq=256)
+LM_CONTROL_WINDOWS = (1, LM_CHECK_SEQ // 2, LM_CHECK_SEQ - 64)
+# The flash kernel is held to ref.err_ratio's bound (half a bf16 ulp of each
+# value plus 2^-12 of its row's RMS) against the plain version in f32.  The
+# logits are a bf16 product (std 1 at init, |x| up to 4.5, where a bf16 ulp
+# is 2^-5), which the two attention paths, or decode_step against prefill,
+# reach through 30 layers that round in different places.  On an H100 the
+# sound pairs read 0.090 and 0.094 and the subtlest control (every layer's
+# window 64 keys short of the last row's reach) 0.485, so the bound sits
+# near the middle of the two on a log scale.  The controls are read and
+# checked against it in every run; each path's distance to the same model
+# in f32 is printed beside.
+LM_LOGIT_TOL = 0.2
 
 
 def fail(msg: str):
@@ -156,11 +190,13 @@ def host_us(torch, fn, calls: int = 300) -> float:
     return (time.perf_counter() - t0) / calls * 1e6
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          flop_rate: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     """(ms, what bounds it): the least time the card could take for the
-    bytes moved and the float32 operations done, the larger of the two."""
+    bytes moved and the operations done at ``flop_rate``, the larger of the
+    two."""
     by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    by_ops = 1e3 * flops / FP32_FLOP_PER_S
+    by_ops = 1e3 * flops / flop_rate
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -220,23 +256,25 @@ BATCHED_CASES = ((1024, 25, "build"), (64, 64, "reference benchmark, no path"))
 # each kernel's row in the kernels line: the path whose launches it reports
 REPORTED = {"gather_l2_tiled": "drain", "gather_l2": "exact_kernel",
             "bitdot": "probe", "fused_estimate": "drain",
-            "batched_l2": "build"}
+            "batched_l2": "build", "flash_attention": "lm_prefill"}
+
+
+def _launch_counters() -> tuple:
+    from repro_torch.kernels.bitdot import ops as bitdot_ops
+    from repro_torch.kernels.flashattn import ops as flash_ops
+    from repro_torch.kernels.l2dist import ops as l2ops
+
+    return l2ops.LAUNCHES, bitdot_ops.LAUNCHES, flash_ops.LAUNCHES
 
 
 def kernel_counts() -> dict:
     """Every kernel's launch count, by name."""
-    from repro_torch.kernels.bitdot import ops as bitdot_ops
-    from repro_torch.kernels.l2dist import ops as l2ops
-
-    return {**l2ops.LAUNCHES, **bitdot_ops.LAUNCHES}
+    return {k: v for counts in _launch_counters() for k, v in counts.items()}
 
 
 def reset_counts() -> None:
     """Set every kernel's launch count to 0 (just before a path runs)."""
-    from repro_torch.kernels.bitdot import ops as bitdot_ops
-    from repro_torch.kernels.l2dist import ops as l2ops
-
-    for counts in (l2ops.LAUNCHES, bitdot_ops.LAUNCHES):
+    for counts in _launch_counters():
         for name in counts:
             counts[name] = 0
 
@@ -757,6 +795,235 @@ def mips_phase(torch, card: str, counts: dict) -> None:
           f"launches {json.dumps(counts['mips'])} ({card})")
 
 
+def flash_rows(torch, card: str, cfg, S: int) -> dict:
+    """flash_attention at the prefill's shape against the plain blockwise
+    attention (the full matrix would be 39 GB of scores), timed beside its
+    plain version and SDPA; then, untimed, a windowed GQA shape and an S
+    that is no multiple of the 64-row tile against the full-matrix
+    version.  Each is held to ``ref.err_ratio``'s bf16 bound against the
+    plain version in f32 on the same values; a control, the kernel with a
+    key tile cut from the last row (window S - 64), must break it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flashattn import ops as flash_ops
+    from repro_torch.kernels.flashattn import ref as flash_ref
+    from repro_torch.models import common
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def qkv(S, H, KV, hd):
+        return [torch.randn((1, S, n, hd), generator=g, device=dev)
+                .to(torch.bfloat16) for n in (H, KV, KV)]
+
+    def held(q, k, v, window, want, what) -> float:
+        out = flash_ops.flash_attention(q, k, v, window=window)
+        err = float((out.float() - want).abs().max())
+        ratio = flash_ref.err_ratio(out, want)
+        note = ""
+        if window is None:
+            n = q.shape[1]
+            control = flash_ref.err_ratio(
+                flash_ops.flash_attention(q, k, v, window=n - 64), want)
+            note = (f"; the control, a key tile cut from the last row, reads "
+                    f"{control:.1f}")
+            check(control > 1.0, f"the bf16 bound does not see a key tile "
+                  f"cut from the last row ({what}): {control}")
+        print(f"[lm] flash_attention {what}: max error {err:.3g}, "
+              f"{ratio:.3f} of the bf16 bound{note}")
+        check(bool(torch.isfinite(out).all()) and ratio <= 1.0,
+              f"flash_attention {what} is {ratio} of the bf16 bound")
+        return err
+
+    for n, H, KV, window in ((1000, 8, 2, 100), (4097, 9, 3, None)):
+        q, k, v = qkv(n, H, KV, 64)
+        G = H // KV
+        want = flash_ref.attention_ref(
+            q.float(), k.float().repeat_interleave(G, 2),
+            v.float().repeat_interleave(G, 2), window=window)
+        held(q, k, v, window, want, f"S={n} H={H} KV={KV} window={window} "
+             "against the full matrix")
+
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = qkv(S, H, KV, hd)
+    want = common.flash_attention(q.float(), k.float(), v.float(),
+                                  backend="jnp")
+    err = held(q, k, v, None, want, f"[1,{S},{H}/{KV},{hd}] against the "
+               "plain blockwise version")
+    del want
+    out = flash_ops.flash_attention(q, k, v)
+    ms = device_ms(torch, lambda: flash_ops.flash_attention(q, k, v), reps=5)
+    plain_ms = device_ms(torch, lambda: common.flash_attention(
+        q, k, v, backend="jnp"), reps=2)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))   # [B, H, S, hd] views
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION]):
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps=5)
+    lib_err = float((lib.transpose(1, 2).float() - out.float()).abs().max())
+    pairs = S * (S + 1) // 2               # (query, key) pairs under the mask
+    bound_ms, bound_by = bound(2 * (2 * S * H * hd + 2 * S * KV * hd),
+                               4 * hd * pairs * H, BF16_TC_FLOP_PER_S)
+    row = dict(name="flash_attention", route="cuda",
+               source="src/repro_torch/kernels/csrc/flash_attn.cu",
+               replaces="src/repro/kernels/flashattn/flashattn.py:101",
+               path="lm_prefill", shape=f"q[1,{S},{H},{hd}] kv[1,{S},{KV},"
+               f"{hd}] bf16 causal", max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=library_ms)
+    print(f"[kernel] flash_attention {row['shape']} (lm_prefill): err "
+          f"{err:.3g} ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+          f"{bound_ms:.4f} ({bound_by}) sdpa_ms {library_ms:.4f} (sdpa "
+          f"against the kernel: max diff {lib_err:.3g}); "
+          f"{4 * hd * pairs * H / ms / 1e9:.1f} TFLOP/s ({card})")
+    del q, k, v, out, lib
+    torch.cuda.empty_cache()
+    return {("flash_attention", "lm_prefill"): row}
+
+
+def _as_f32(tree):
+    """A copy of a parameter tree with every tensor in float32."""
+    if isinstance(tree, dict):
+        return {k: _as_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_as_f32(v) for v in tree]
+    return tree.float()
+
+
+def lm_phase(torch, card: str, counts: dict) -> tuple[dict, dict]:
+    """smollm-135m on the card: the kernel row, the 32k prefill, the
+    kernel-vs-plain prefill and generate (see the module docstring)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch, make_markov_lm
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import generate
+
+    spec = get_arch(LM_ARCH)
+    cfg = spec.model_cfg
+    S = spec.shapes["prefill_32k"].dims["seq"]     # its batch cut to 1
+    rows = flash_rows(torch, card, cfg, S)
+    dev = torch.device("cuda")
+    params = tf.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                     device=dev)
+    n_params = sum(t.numel() for t in (params["embed"], params["unembed"],
+                                       params["ln_f"]))
+    n_params += sum(t.numel() for p in params["layers"] for t in
+                    [*(x for x in p.values() if torch.is_tensor(x)),
+                     *p["ffn"].values()])
+    check(n_params == cfg.param_count(), f"{n_params} parameters, "
+          f"{cfg.param_count()} expected")
+    lm = make_markov_lm(cfg.vocab, seed=0)
+
+    toks = torch.from_numpy(lm_batch(lm, 1, LM_CHECK_SEQ, step=0)[0]).to(dev)
+    kern = tf.prefill(cfg, params, toks)
+    plain = tf.prefill(cfg, params, toks, backend="jnp")
+    e2e_err = float((kern - plain).abs().max())
+    f32 = tf.prefill(dataclasses.replace(cfg, dtype=torch.float32),
+                     _as_f32(params), toks, backend="jnp")
+    # controls: the kernel's prefill with every layer's attention cut on
+    # purpose (window_period 2 windows every layer of a dense model, C.6)
+    controls = {w: float((tf.prefill(dataclasses.replace(
+        cfg, window=w, window_period=2), params, toks) - plain).abs().max())
+        for w in LM_CONTROL_WINDOWS}
+    print(f"[lm] prefill S={LM_CHECK_SEQ}: last-position logits with the "
+          f"kernel against plain attention, max diff {e2e_err:.4g} (bound "
+          f"{LM_LOGIT_TOL}; logits' max |x| {float(plain.abs().max()):.3f}); "
+          f"against the f32 model: kernel {float((kern - f32).abs().max()):.4g}"
+          f", plain {float((plain - f32).abs().max()):.4g}; controls, the "
+          f"kernel with every layer windowed: " + ", ".join(
+              f"window {w}: {d:.4g}" for w, d in controls.items()))
+    check(e2e_err <= LM_LOGIT_TOL, f"prefill with the kernel and with plain "
+          f"attention differ by {e2e_err} > {LM_LOGIT_TOL}")
+    check(min(controls.values()) > LM_LOGIT_TOL, f"the logit bound "
+          f"{LM_LOGIT_TOL} does not see attention cut to a window: {controls}")
+    del kern, plain, f32
+
+    toks = torch.from_numpy(lm_batch(lm, 1, S, step=1)[0]).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = tf.prefill(cfg, params, toks)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts["lm_prefill"] = kernel_counts()
+    check(counts["lm_prefill"]["flash_attention"] == cfg.n_layers,
+          f"prefill launched flash_attention "
+          f"{counts['lm_prefill']['flash_attention']} times, not "
+          f"{cfg.n_layers}")
+    check(tuple(logits.shape) == (1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          "prefill logits are not [1, V] and finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[lm] {cfg.name} prefill 1 × {S}: {prefill_s:.3f} s, "
+          f"{S / prefill_s:.1f} tokens/s, flash_attention launches "
+          f"{counts['lm_prefill']['flash_attention']}, peak memory "
+          f"{peak_gb:.2f} GB ({card})")
+
+    B, P = LM_GEN["batch"], LM_GEN["prompt"]
+    prompts = torch.from_numpy(lm_batch(lm, B, P, step=2)[0]).to(dev)
+    pre = tf.prefill(cfg, params, prompts)
+
+    def stepped(prompts, shift=0):
+        """Last logits of stepping prompts through decode_step from a cache
+        whose positions start at shift."""
+        cache = tf.init_cache(cfg, B, LM_GEN["max_seq"], device=dev)
+        cache["pos"] += shift
+        for t in range(prompts.shape[1]):
+            logits, cache = tf.decode_step(cfg, params, cache, prompts[:, t])
+        return logits
+
+    step_err = float((stepped(prompts) - pre).abs().max())
+    # controls: the cache one position off (slot 0 left empty but read),
+    # and the prompt's first token missing from the cache
+    step_controls = {
+        "pos off by one": float((stepped(prompts, 1) - pre).abs().max()),
+        "first token dropped": float((stepped(prompts[:, 1:]) - pre)
+                                     .abs().max())}
+    print(f"[lm] decode_step over {B} prompts of {P} against prefill: max "
+          f"diff {step_err:.4g} (bound {LM_LOGIT_TOL}); controls: " +
+          ", ".join(f"{c}: {d:.4g}" for c, d in step_controls.items()))
+    check(step_err <= LM_LOGIT_TOL, f"decode_step over the prompt and "
+          f"prefill differ by {step_err} > {LM_LOGIT_TOL}")
+    check(min(step_controls.values()) > LM_LOGIT_TOL, f"the logit bound "
+          f"{LM_LOGIT_TOL} does not see a broken decode cache: "
+          f"{step_controls}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(cfg, params, prompts, max_new=LM_GEN["max_new"],
+                   max_seq=LM_GEN["max_seq"])
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    check(tuple(out.shape) == (B, P + LM_GEN["max_new"])
+          and bool((out[:, :P] == prompts).all())
+          and 0 <= int(out.min()) and int(out.max()) < cfg.vocab,
+          "generate returned a wrong shape, a changed prompt or a token "
+          "outside the vocabulary")
+    # generate's first token is the argmax of decode_step's logits, which
+    # are within the bound of prefill's: so prefill rates it within twice
+    # the bound of its best, on every row
+    first = pre.gather(1, out[:, P:P + 1].long())[:, 0]
+    check(bool((first >= pre.max(-1).values - 2 * LM_LOGIT_TOL).all()),
+          "greedy generate's first token is not among prefill's top "
+          "logits")
+    steps = P + LM_GEN["max_new"] - 1
+    summary = dict(arch=cfg.name, params=n_params, prefill_seq=S,
+                   prefill_s=prefill_s, prefill_tok_s=S / prefill_s,
+                   prefill_peak_gb=peak_gb, e2e_logit_diff=e2e_err,
+                   decode_vs_prefill_diff=step_err, gen_batch=B,
+                   gen_prompt=P, gen_new=LM_GEN["max_new"], gen_s=gen_s,
+                   decode_tok_s=B * steps / gen_s,
+                   new_tok_s=B * LM_GEN["max_new"] / gen_s,
+                   e2e_controls=controls, decode_controls=step_controls)
+    print(f"[lm] generate {B} × ({P} + {LM_GEN['max_new']}) greedy: "
+          f"{gen_s:.2f} s, {B * steps / gen_s:.1f} decode tokens/s "
+          f"({steps} decode steps of {B} rows) ({card})")
+    return rows, summary
+
+
 def _device_us(torch, event) -> float:
     """Device time of a kernel or copy row; 0 for a host row (whose
     ``self_device_time_total`` repeats its kernels' time)."""
@@ -884,6 +1151,8 @@ def main(argv=None) -> int:
     timed("exact_build", exact_build_phase, torch, card, counts)
     timed("baselines", baselines_phase, torch, card)
     timed("mips", mips_phase, torch, card, counts)
+    lm_rows, lm = timed("lm", lm_phase, torch, card, counts)
+    rows.update(lm_rows)
 
     kernels = []
     for name, path in REPORTED.items():
@@ -892,6 +1161,7 @@ def main(argv=None) -> int:
         check(r["launches"] > 0, f"{name} never launched on its path {path}")
         kernels.append(r)
     print(f"[paths] launch counts by path: {json.dumps(counts)}")
+    print(f"[lm-summary] {json.dumps(lm)} card={card}")
     print(f"[serve-summary] {json.dumps(serve)} card={card} "
           f"wall={time.perf_counter() - t_start:.1f}s "
           f"phases={json.dumps(seconds)}")

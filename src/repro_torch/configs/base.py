@@ -1,0 +1,58 @@
+"""Arch / shape registry of the port: a copy of the part of
+``repro.configs.base`` that the ported models use (``ShapeSpec``,
+``ArchSpec``, ``lm_shapes``, ``register``, ``get_arch``), with only the
+fields and shapes that a port path reads.
+
+An arch's module is listed in ``_ARCH_MODULES`` once its model is ported:
+smollm-135m came with the LM slice; the other archs come with the slices
+that port their models (MoE, recsys, GNN).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str                   # prefill (the only kind a port path runs)
+    dims: dict                  # family-specific dimensions
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    id: str
+    model_cfg: Any              # the family's config dataclass
+    shapes: dict[str, ShapeSpec]
+    source: str = ""            # provenance note
+    smoke_cfg: Any = None       # reduced config for CPU tests
+
+
+_ARCH_MODULES = ["smollm_135m"]
+
+_REGISTRY: dict[str, ArchSpec] = {}
+
+
+def register(spec: ArchSpec) -> ArchSpec:
+    _REGISTRY[spec.id] = spec
+    return spec
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    if not _REGISTRY:
+        for mod in _ARCH_MODULES:
+            importlib.import_module(f"repro_torch.configs.{mod}")
+    if arch_id not in _REGISTRY:
+        raise KeyError(f"unknown arch '{arch_id}'; have {sorted(_REGISTRY)}")
+    return _REGISTRY[arch_id]
+
+
+def lm_shapes() -> dict[str, ShapeSpec]:
+    """The reference's LM shapes that a port path runs: ``prefill_32k``
+    (``chip_smoke.py``'s prefill, its batch cut to 1).  The train and
+    decode shapes come with the slices that run them."""
+    return {"prefill_32k": ShapeSpec("prefill_32k", "prefill",
+                                     {"seq": 32768, "batch": 32})}

@@ -1,1 +1,6 @@
-from .synthetic import clustered_vectors  # noqa: F401
+from .synthetic import (  # noqa: F401
+    MarkovLM,
+    clustered_vectors,
+    lm_batch,
+    make_markov_lm,
+)

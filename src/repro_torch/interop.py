@@ -1,10 +1,15 @@
-"""Carry an index built by the JAX package across into this port.
+"""Carry an index or LM parameters made by the JAX package across into
+this port.
 
 ``index_from_numpy`` takes the reference index's fields as numpy arrays
 (``np.asarray`` of each) and returns the port's ``GraphIndex`` — or, given
 the RaBitQ fields too, ``EMQGIndex`` — on ``device``.  The ``uint32`` code
-words become their ``int32`` view, bit for bit.  Nothing here imports the
-JAX package; the caller converts.
+words become their ``int32`` view, bit for bit.
+
+``lm_params_from_numpy`` takes the reference LM's parameter tree as numpy
+arrays and returns the port's parameter dict on ``device``.
+
+Nothing here imports the JAX package; the caller converts.
 """
 
 from __future__ import annotations
@@ -40,3 +45,38 @@ def index_from_numpy(vectors, neighbors, medoid, kind: str = "delta_emg",
         ip_xo=f32(ip_xo), rotation=f32(rotation), center=f32(center),
         dim=int(dim if dim is not None else graph.dim))
     return EMQGIndex(graph=graph, codes=rq)
+
+
+def _tensor(x, dev) -> torch.Tensor:
+    """A numpy array (or a bfloat16 one, as ``np.asarray`` gives of a JAX
+    bf16 array) as a tensor of the same dtype on ``dev``, bit for bit."""
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.int16).copy()).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(x)).to(dev)
+
+
+def lm_params_from_numpy(cfg, tree: dict, device="cuda") -> dict:
+    """The port's LM parameters from the reference's tree: ``embed``,
+    ``unembed``, ``ln_f``, an empty ``head_layers`` and ``scan`` = one
+    stack of ``[L, ...]`` arrays (a dense model).  Every array keeps its
+    dtype and the ``x @ W`` orientation."""
+    if cfg.n_experts > 0 or tree.get("head_layers") or len(tree["scan"]) != 1:
+        raise NotImplementedError(
+            f"{cfg.name}: only dense models without leading unrolled layers "
+            "are ported (models/moe.py: ROADMAP A.9)")
+    dev = resolve_device(device)
+    stack = tree["scan"][0]
+
+    def layer(i, node):
+        if isinstance(node, dict):
+            return {k: layer(i, v) for k, v in node.items()}
+        return _tensor(np.asarray(node)[i], dev)
+
+    return {
+        "embed": _tensor(tree["embed"], dev),
+        "unembed": _tensor(tree["unembed"], dev),
+        "ln_f": _tensor(tree["ln_f"], dev),
+        "layers": [layer(i, stack) for i in range(cfg.n_layers)],
+    }

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels for the ANN distance hot path (``sm_90a``).
+"""Hand-written CUDA kernels for the ANN distance hot path and the LM's
+attention (``sm_90a``).
 
     l2dist/  — fused gather + squared L2 (exact tier): ``gather_l2`` and
                ``gather_l2_tiled``, from ``csrc/gather_l2.cu``; and
@@ -7,6 +8,9 @@
     bitdot/  — packed 1-bit RaBitQ S₊ contraction, from ``csrc/bitdot.cu``;
                and ``fused_estimate`` (the whole RaBitQ estimate, gathered
                by id: the approximate tier), from ``csrc/fused_estimate.cu``
+    flashattn/ — causal / sliding-window flash-attention forward with
+               grouped KV heads (the LM's attention), from
+               ``csrc/flash_attn.cu``
 
 Each has ``ops.py`` (the wrapper: checks, launch count, CUDA launch or the
 plain version on a CPU tensor) and ``ref.py`` (the plain PyTorch version).

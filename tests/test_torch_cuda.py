@@ -14,7 +14,12 @@ fused-estimate test's tolerance; the kernel sums S₊ over set bits, the
 plain version over ±1 signs), batched_l2 to rtol 1e-5 / atol 1e-4 in f32
 (and the same on bf16 inputs, which both cast to f32 first).  The engines
 on the card must give the ids of their plain paths on ≥ 99% of queries
-(float sum order can swap a tie).
+(float sum order can swap a tie).  The flash-attention kernel is held
+against the full-matrix plain version to rtol/atol 2e-5 in f32 (the same
+f32 math in another order; the JAX kernel test's tolerance); on bf16
+inputs against the plain version in f32 on the same values, to half a bf16
+ulp of each value plus 2^-12 of its row's RMS (``ref.err_ratio``: the
+kernel keeps p and its sums in f32 and rounds only its output).
 """
 
 import numpy as np
@@ -24,17 +29,30 @@ import torch
 from repro_torch.core import BuildParams, SearchParams, build_emqg
 from repro_torch.core import ags_search, build_exact, probing_search, search
 from repro_torch.core import rabitq, theorem4_delta_prime
+from repro_torch import data as port_data
 from repro_torch.data import clustered_vectors
 from repro_torch.kernels import _build
 from repro_torch.kernels.bitdot import ops as bitdot_ops
 from repro_torch.kernels.bitdot import ref as bitdot_ref
+from repro_torch.kernels.flashattn import ops as flash_ops
+from repro_torch.kernels.flashattn import ref as flash_ref
 from repro_torch.kernels.l2dist import ops as l2ops
 from repro_torch.kernels.l2dist import ref as l2ref
+from repro_torch.configs import get_arch
+from repro_torch.models import common
+from repro_torch.models import transformer as tf
+from repro_torch.serve import generate
 
 L2_SHAPES = [(2, 16, 24), (4, 32, 128), (1, 7, 65)]
 BITDOT_SHAPES = [(8, 32), (100, 100), (300, 128), (17, 257)]
 ESTIMATE_DIMS = [128, 129, 200]           # W = 4, 5 (one bit in the last), 7
 BATCHED_L2_SHAPES = [(1, 8, 16), (4, 24, 100), (3, 17, 33)]
+# (B, S, H, KV, causal, window): one row, a ragged tile, bidirectional,
+# GQA, windows inside and across tiles, and S past a 64-row tile at 4,097
+FLASH_CASES = [(1, 1, 2, 1, True, None), (2, 100, 6, 3, True, None),
+               (1, 100, 4, 4, False, None), (1, 130, 4, 2, True, 7),
+               (1, 4097, 2, 1, True, None), (1, 4097, 4, 2, True, 300),
+               (1, 4097, 2, 2, False, None)]
 
 
 def _l2_inputs(B, M, d, seed=7, n=200):
@@ -235,3 +253,106 @@ def test_exact_build_and_certificate_on_card(cuda):
     both = out["auto"][0] & out["jnp"][0]
     torch.testing.assert_close(out["auto"][1][both], out["jnp"][1][both],
                                rtol=1e-4, atol=0)
+
+
+def _flash_inputs(B, S, H, KV, hd, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=device).to(dtype)
+            for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+
+def _flash_plain(q, k, v, causal, window):
+    groups = q.shape[2] // k.shape[2]
+    return flash_ref.attention_ref(q, k.repeat_interleave(groups, 2),
+                                   v.repeat_interleave(groups, 2),
+                                   causal=causal, window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", flash_ops.HEAD_DIMS)
+def test_flash_attention_kernel_on_card(cuda, hd, dtype):
+    for B, S, H, KV, causal, window in FLASH_CASES:
+        q, k, v = _flash_inputs(B, S, H, KV, hd, dtype, cuda, seed=S + hd)
+        before = flash_ops.LAUNCHES["flash_attention"]
+        out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert flash_ops.LAUNCHES["flash_attention"] == before + 1
+        assert out.dtype == dtype and out.shape == q.shape
+        assert torch.isfinite(out).all()
+        if dtype == torch.float32:
+            torch.testing.assert_close(
+                out, _flash_plain(q, k, v, causal, window),
+                rtol=2e-5, atol=2e-5)
+        else:
+            want = _flash_plain(q.float(), k.float(), v.float(), causal,
+                                window)
+            assert flash_ref.err_ratio(out, want) <= 1.0
+
+
+@pytest.mark.cuda
+def test_flash_attention_reads_strided_inputs(cuda):
+    """q, k and v as column slices of one fused projection (no copy), and
+    a transposed view, give what their contiguous copies give."""
+    B, S, H, KV, hd = 2, 300, 6, 2, 64
+    fused = torch.randn((B, S, H + 2 * KV, hd), device=cuda,
+                        dtype=torch.bfloat16)
+    q, k, v = fused.split([H, KV, KV], dim=2)
+    assert not q.is_contiguous()
+    out = flash_ops.flash_attention(q, k, v, window=50)
+    want = flash_ops.flash_attention(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), window=50)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    qt = torch.randn((B, H, S, hd), device=cuda).transpose(1, 2)
+    kt = torch.randn((B, KV, S, hd), device=cuda).transpose(1, 2)
+    torch.testing.assert_close(
+        flash_ops.flash_attention(qt, kt, kt),
+        _flash_plain(qt, kt, kt, True, None), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda,
+                                                               monkeypatch):
+    """A head_dim with no kernel instance raises rather than running the
+    plain version; a refused launch raises and is not counted."""
+    q, k, v = _flash_inputs(1, 16, 2, 1, 48, torch.float32, cuda)
+    before = flash_ops.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_ops.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        common.flash_attention(q, k, v)
+
+    class Refused:
+        @staticmethod
+        def flash_attn_fwd(*args):
+            return 9                    # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(_build, "load", lambda name: Refused())
+    q, k, v = _flash_inputs(1, 16, 2, 1, 64, torch.float32, cuda)
+    with pytest.raises(RuntimeError, match="flash_attention"):
+        flash_ops.flash_attention(q, k, v)
+    assert flash_ops.LAUNCHES["flash_attention"] == before
+
+
+@pytest.mark.cuda
+def test_lm_on_card_launches_the_kernel(cuda):
+    """prefill launches the kernel once a layer and agrees with its plain
+    path; stepping the prompt through decode_step gives prefill's logits;
+    greedy generate runs on the card."""
+    cfg = get_arch("smollm-135m").smoke_cfg
+    params = tf.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                     device=cuda)
+    lm = port_data.make_markov_lm(cfg.vocab, seed=0)
+    toks = torch.from_numpy(port_data.lm_batch(lm, 2, 40, step=0)[0]).to(cuda)
+    before = flash_ops.LAUNCHES["flash_attention"]
+    kern = tf.prefill(cfg, params, toks)
+    assert flash_ops.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    plain = tf.prefill(cfg, params, toks, backend="jnp")
+    assert flash_ops.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    torch.testing.assert_close(kern, plain, rtol=1e-4, atol=1e-4)
+    cache = tf.init_cache(cfg, 2, 64, device=cuda)
+    for t in range(toks.shape[1]):
+        logits, cache = tf.decode_step(cfg, params, cache, toks[:, t])
+    torch.testing.assert_close(logits, kern, rtol=1e-4, atol=1e-4)
+    out = generate(cfg, params, toks, max_new=5, max_seq=64)
+    assert out.shape == (2, 45) and (out[:, :40] == toks).all()

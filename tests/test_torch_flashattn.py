@@ -1,0 +1,132 @@
+"""The port's attention against the JAX package's, on the CPU.
+
+The port's ``kernels.flashattn.ops.flash_attention`` runs its plain
+full-matrix version here (the tensors lie on the CPU), held against the
+JAX Pallas kernel in interpret mode and against its ``use_ref=True`` oracle
+over the five shapes of ``tests/test_flashattn.py``, to rtol/atol 2e-5 (the
+same f32 math summed in another order).  The port's blockwise
+``models.common.flash_attention`` is held against the reference's
+``repro.models.common.flash_attention``: 2e-5 in f32, 2e-2 with bf16
+inputs (both round p to bf16 before the PV product, but at other points of
+the sum).  The CUDA kernel itself is held against the plain version in
+``tests/test_torch_cuda.py`` (marker ``cuda``); on bf16 inputs, to the
+bound of ``ref.err_ratio``, whose reach is checked here on the kernel's
+arithmetic (p and sums in f32, the output rounded to bf16).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from repro.kernels.flashattn.ops import flash_attention as ref_flash_kernel
+from repro.models.common import flash_attention as ref_blockwise
+
+from repro_torch.kernels.flashattn import ops as flash_ops
+from repro_torch.kernels.flashattn import ref as flash_ref
+from repro_torch.models import common
+
+torch.set_num_threads(1)
+
+CASES = [
+    # B, S, H, KV, hd, causal, window, bq, bk  (tests/test_flashattn.py)
+    (2, 64, 4, 2, 32, True, None, 16, 16),
+    (1, 100, 6, 3, 16, True, None, 32, 32),      # S not divisible by blocks
+    (2, 128, 4, 4, 32, True, 32, 32, 32),        # sliding window
+    (1, 64, 2, 1, 64, False, None, 16, 16),      # bidirectional
+    (1, 48, 8, 2, 16, True, 16, 16, 16),         # window + GQA
+]
+
+
+def _qkv(B, S, H, KV, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, S, H, hd)).astype(np.float32),
+            rng.normal(size=(B, S, KV, hd)).astype(np.float32),
+            rng.normal(size=(B, S, KV, hd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window,bq,bk", CASES)
+def test_flash_ops_match_reference_kernel(B, S, H, KV, hd, causal, window,
+                                          bq, bk):
+    q, k, v = _qkv(B, S, H, KV, hd, seed=S + H)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    kern = ref_flash_kernel(jq, jk, jv, causal=causal, window=window,
+                            bq=bq, bk=bk)
+    oracle = ref_flash_kernel(jq, jk, jv, causal=causal, window=window,
+                              use_ref=True)
+    before = flash_ops.LAUNCHES["flash_attention"]
+    out = flash_ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                                    causal=causal, window=window)
+    assert flash_ops.LAUNCHES["flash_attention"] == before
+    assert out.shape == (B, S, H, hd) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(kern),
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(oracle),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window,bq,bk", CASES)
+def test_blockwise_matches_reference(B, S, H, KV, hd, causal, window, bq, bk,
+                                     dtype, tol):
+    q, k, v = _qkv(B, S, H, KV, hd, seed=S + H + 1)
+    jx = [jnp.asarray(x).astype(getattr(jnp, dtype)) for x in (q, k, v)]
+    want = ref_blockwise(*jx, causal=causal, window=window,
+                         block_q=bq, block_k=bk)
+    tx = [torch.from_numpy(x).to(getattr(torch, dtype)) for x in (q, k, v)]
+    got = common.flash_attention(*tx, causal=causal, window=window,
+                                 block_q=bq, block_k=bk)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("S,window", [(1000, None), (1000, 100), (321, 7)])
+def test_bf16_bound_holds_rounding_and_sees_one_missing_key(S, window):
+    """The full-matrix version computes as the kernel does: f32 scores, p
+    and sums, the output rounded to bf16.  Against the plain blockwise
+    version in f32 on the same values it stays within ``err_ratio``'s
+    bound; a window one key short (one key missing from the last row, or
+    from each row the window reaches), or p rounded to bf16 before the PV
+    product, breaks it."""
+    q, k, v = (torch.from_numpy(x).bfloat16()
+               for x in _qkv(1, S, 4, 2, 64, seed=S))
+    want = common.flash_attention(q.float(), k.float(), v.float(),
+                                  window=window)
+    assert flash_ref.err_ratio(flash_ops.flash_attention(
+        q, k, v, window=window), want) <= 1.0
+    cut = S - 1 if window is None else window - 1
+    assert flash_ref.err_ratio(flash_ops.flash_attention(
+        q, k, v, window=cut), want) > 1.0
+    assert flash_ref.err_ratio(common.flash_attention(
+        q, k, v, window=window), want) > 1.0
+
+
+def test_blockwise_jnp_backend_and_ragged_blocks():
+    """``backend="jnp"`` is the same plain code; a block size that divides
+    neither S nor the other block leaves no NaN in any row."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 77, 4, 2, 16, seed=5))
+    a = common.flash_attention(q, k, v, window=9, block_q=20, block_k=12)
+    b = common.flash_attention(q, k, v, window=9, block_q=20, block_k=12,
+                               backend="jnp")
+    full = flash_ops.flash_attention(q, k, v, window=9)
+    assert torch.isfinite(a).all()
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(a, full, rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError, match="backend"):
+        common.flash_attention(q, k, v, backend="kernel")
+
+
+def test_flash_ops_check_their_inputs():
+    q = torch.zeros(1, 8, 4, 16)
+    k = torch.zeros(1, 8, 3, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_ops.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="match"):
+        flash_ops.flash_attention(q, torch.zeros(1, 9, 2, 16),
+                                  torch.zeros(1, 9, 2, 16))
+    with pytest.raises(TypeError, match="dtype"):
+        flash_ops.flash_attention(q.half(), k[:, :, :2].half(),
+                                  k[:, :, :2].half())
+    with pytest.raises(ValueError, match="window"):
+        flash_ops.flash_attention(q, k[:, :, :2], k[:, :, :2], window=0)
