@@ -60,17 +60,23 @@ non-zero and prints no result line):
                ``mips_search`` for 256 queries: recall@10 against brute-force
                inner product, ids against the plain path;
 10. lm      — smollm-135m at full width in bf16, weights from a seeded
-               ``torch.Generator``: the ``flash_attention`` kernel against
+               ``torch.Generator``: the ``flash_attention`` kernel (its bf16
+               instance on the tensor cores, ``flash_attn_sm90.cu``) against
                the plain blockwise attention at the prefill's shape (q [1,
                32768, 9, 64], k/v [1, 32768, 3, 64], causal), timed beside
-               ``scaled_dot_product_attention`` as its library yardstick,
+               ``scaled_dot_product_attention`` as its library yardstick
+               (at most ``FLASH_MAX_SDPA_RATIO`` times its time), with the
+               instance's compiled resources and HGMMA count printed,
                plus a windowed GQA shape and a ragged S against the
                full-matrix version, each element to half a bf16 ulp (the
                plain version in f32; a key tile cut from the last row must
                break it); ``transformer.prefill`` over one prompt of 32,768
                tokens (``prefill_32k``'s sequence, the batch cut from 32
                to 1: at 32 the [B, S, V] f32 logits alone would be 206 GB),
-               30 kernel launches; the prefill with the kernel against the
+               30 kernel launches and no input copied for TMA, then that
+               prefill again under ``torch.profiler`` (device busy share,
+               the flash kernel's and the GEMMs' shares of device time, a
+               ``[profile]`` line); the prefill with the kernel against the
                plain attention at S = 4,096; and ``lm_server.generate`` for
                8 prompts of 128 tokens, greedy, 32 new tokens, with
                ``decode_step``'s logits after the prompt against
@@ -133,6 +139,12 @@ LM_CONTROL_WINDOWS = (1, LM_CHECK_SEQ // 2, LM_CHECK_SEQ - 64)
 # checked against it in every run; each path's distance to the same model
 # in f32 is printed beside.
 LM_LOGIT_TOL = 0.2
+# The bf16 flash kernel at the prefill's shape may take at most this many
+# times SDPA's time in the same run (the tensor-core redesign's target)
+FLASH_MAX_SDPA_RATIO = 4.0
+# kernel names of the dense products (cuBLAS's GEMM / GEMV kernels) in a
+# profile of the prefill
+GEMM_TAGS = ("gemm", "gemv", "nvjet", "xmma")
 
 
 def fail(msg: str):
@@ -865,10 +877,11 @@ def flash_rows(torch, card: str, cfg, S: int) -> dict:
             qt, kt, vt, is_causal=True, enable_gqa=True), reps=5)
     lib_err = float((lib.transpose(1, 2).float() - out.float()).abs().max())
     pairs = S * (S + 1) // 2               # (query, key) pairs under the mask
+    flops = 4 * hd * pairs * H
     bound_ms, bound_by = bound(2 * (2 * S * H * hd + 2 * S * KV * hd),
-                               4 * hd * pairs * H, BF16_TC_FLOP_PER_S)
+                               flops, BF16_TC_FLOP_PER_S)
     row = dict(name="flash_attention", route="cuda",
-               source="src/repro_torch/kernels/csrc/flash_attn.cu",
+               source="src/repro_torch/kernels/csrc/flash_attn_sm90.cu",
                replaces="src/repro/kernels/flashattn/flashattn.py:101",
                path="lm_prefill", shape=f"q[1,{S},{H},{hd}] kv[1,{S},{KV},"
                f"{hd}] bf16 causal", max_abs_err=err, ms=ms,
@@ -878,10 +891,45 @@ def flash_rows(torch, card: str, cfg, S: int) -> dict:
           f"{err:.3g} ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
           f"{bound_ms:.4f} ({bound_by}) sdpa_ms {library_ms:.4f} (sdpa "
           f"against the kernel: max diff {lib_err:.3g}); "
-          f"{4 * hd * pairs * H / ms / 1e9:.1f} TFLOP/s ({card})")
+          f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the "
+          f"bound, {ms / library_ms:.2f}x SDPA ({card})")
+    check(ms <= FLASH_MAX_SDPA_RATIO * library_ms, f"flash_attention takes "
+          f"{ms} ms, over {FLASH_MAX_SDPA_RATIO}x SDPA's {library_ms} ms")
+    print(f"[kernel] flash_attention bf16 hd={hd} instance: "
+          f"{json.dumps(flash_ops.sm90_resources(hd))}; {sass_count()} "
+          f"HGMMA instructions in its library; ptxas: {ptxas_report(hd)}")
     del q, k, v, out, lib
     torch.cuda.empty_cache()
     return {("flash_attention", "lm_prefill"): row}
+
+
+def sass_count(op: str = "HGMMA") -> str:
+    """How many ``op`` instructions the tensor-core flash library holds
+    (``cuobjdump -sass``), or why that is not known."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return "unknown (no cuobjdump)"
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(
+        "flash_attn_sm90"))], capture_output=True, text=True, timeout=120)
+    if sass.returncode != 0:
+        return f"unknown (cuobjdump exit {sass.returncode})"
+    return str(sum(op in line for line in sass.stdout.splitlines()))
+
+
+def ptxas_report(hd: int) -> str:
+    """ptxas's lines on the bf16 kernel's instance for ``hd`` (registers,
+    spills, serialised wgmma) from the library's build log."""
+    from repro_torch.kernels import _build
+
+    lines = _build.build_log("flash_attn_sm90").splitlines()
+    tag = f"flash_fwd_sm90ILi{hd}E"
+    keep = [ln.strip() for i, ln in enumerate(lines)
+            if tag in ln or any(tag in p for p in lines[max(0, i - 2):i])]
+    return " | ".join(keep) or "no report"
 
 
 def _as_f32(tree):
@@ -893,11 +941,14 @@ def _as_f32(tree):
     return tree.float()
 
 
-def lm_phase(torch, card: str, counts: dict) -> tuple[dict, dict]:
-    """smollm-135m on the card: the kernel row, the 32k prefill, the
-    kernel-vs-plain prefill and generate (see the module docstring)."""
+def lm_phase(torch, card: str, counts: dict,
+             out: Path) -> tuple[dict, dict]:
+    """smollm-135m on the card: the kernel row, the 32k prefill and its
+    profile, the kernel-vs-plain prefill and generate (see the module
+    docstring)."""
     from repro_torch.configs import get_arch
     from repro_torch.data import lm_batch, make_markov_lm
+    from repro_torch.kernels.flashattn import ops as flash_ops
     from repro_torch.models import transformer as tf
     from repro_torch.serve import generate
 
@@ -944,6 +995,7 @@ def lm_phase(torch, card: str, counts: dict) -> tuple[dict, dict]:
     toks = torch.from_numpy(lm_batch(lm, 1, S, step=1)[0]).to(dev)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    flash_ops.COPIES["flash_attention"] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits = tf.prefill(cfg, params, toks)
@@ -954,14 +1006,29 @@ def lm_phase(torch, card: str, counts: dict) -> tuple[dict, dict]:
           f"prefill launched flash_attention "
           f"{counts['lm_prefill']['flash_attention']} times, not "
           f"{cfg.n_layers}")
+    check(flash_ops.COPIES["flash_attention"] == 0, f"prefill copied "
+          f"{flash_ops.COPIES['flash_attention']} attention inputs for TMA")
     check(tuple(logits.shape) == (1, cfg.vocab)
           and bool(torch.isfinite(logits).all()),
           "prefill logits are not [1, V] and finite")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[lm] {cfg.name} prefill 1 × {S}: {prefill_s:.3f} s, "
           f"{S / prefill_s:.1f} tokens/s, flash_attention launches "
-          f"{counts['lm_prefill']['flash_attention']}, peak memory "
+          f"{counts['lm_prefill']['flash_attention']}, input copies "
+          f"{flash_ops.COPIES['flash_attention']}, peak memory "
           f"{peak_gb:.2f} GB ({card})")
+    row, avgs = _profiled(torch, lambda: tf.prefill(cfg, params, toks),
+                          "lm_prefill", out)
+    kernel_us = {e.key: _device_us(torch, e) for e in avgs}
+    total_us = sum(kernel_us.values())
+    row.update(seq=S, card=card,
+               flash_share=sum(us for k, us in kernel_us.items()
+                               if "flash_fwd_sm90" in k) / total_us,
+               gemm_share=sum(us for k, us in kernel_us.items()
+                              if any(t in k.lower() for t in GEMM_TAGS))
+               / total_us)
+    print(f"[profile] {json.dumps(row)}")
+    del logits
 
     B, P = LM_GEN["batch"], LM_GEN["prompt"]
     prompts = torch.from_numpy(lm_batch(lm, B, P, step=2)[0]).to(dev)
@@ -1032,12 +1099,12 @@ def _device_us(torch, event) -> float:
     return float(event.self_device_time_total)
 
 
-def _profiled(torch, fn, phase: str, out: Path) -> dict:
-    from repro_torch.kernels.l2dist import ops as l2ops
-
+def _profiled(torch, fn, phase: str, out: Path) -> tuple[dict, list]:
+    """``fn()`` under torch.profiler: (wall and device ms, the device's busy
+    share, kernel launches; the profiler's rows), with the operator tables
+    written to ``out``."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    hops0 = l2ops.LAUNCHES["gather_l2_tiled"]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -1049,18 +1116,14 @@ def _profiled(torch, fn, phase: str, out: Path) -> dict:
     launches = sum(e.count for e in avgs
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaLaunchKernelExC"))
-    # one gather_l2_tiled launch per hop, plus one for the start distance
-    hops = l2ops.LAUNCHES["gather_l2_tiled"] - hops0 - 1
     out.mkdir(parents=True, exist_ok=True)
     (out / f"profile_{phase}.txt").write_text(
         avgs.table(sort_by="self_cpu_time_total", row_limit=40) + "\n"
         + avgs.table(sort_by="self_device_time_total", row_limit=25))
-    return dict(phase=phase, wall_ms=wall_s * 1e3,
-                device_ms=device_us / 1e3 if device_us else None,
-                device_busy=(device_us / 1e6 / wall_s) if device_us else None,
-                hops=hops, kernel_launches=launches,
-                launches_per_hop=launches / max(hops, 1),
-                ms_per_hop=wall_s * 1e3 / max(hops, 1))
+    check(device_us > 0, f"the profile of {phase} shows no device time")
+    return dict(phase=phase, wall_ms=wall_s * 1e3, device_ms=device_us / 1e3,
+                device_busy=device_us / 1e6 / wall_s,
+                kernel_launches=launches), avgs
 
 
 def profile_phase(torch, idx, vq, out: Path, card: str) -> None:
@@ -1072,6 +1135,7 @@ def profile_phase(torch, idx, vq, out: Path, card: str) -> None:
     kernel and copy time over the wall time (one stream, so the intervals
     do not overlap); the profiler's own cost is in that wall time."""
     from repro_torch.core import BuildParams, SearchParams, search
+    from repro_torch.kernels.l2dist import ops as l2ops
     from repro_torch.serve import AnnServer
 
     bp = BuildParams(**BUILD_PARAMS)
@@ -1092,8 +1156,14 @@ def profile_phase(torch, idx, vq, out: Path, card: str) -> None:
                with_candidates=True)
 
     for phase, fn in (("serve", serve), ("build_block", build_block)):
-        row = _profiled(torch, fn, phase, out)
-        row.update(n=idx.graph.n, card=card)
+        hops0 = l2ops.LAUNCHES["gather_l2_tiled"]
+        row, _ = _profiled(torch, fn, phase, out)
+        # one gather_l2_tiled launch per hop, plus one for the start distance
+        hops = l2ops.LAUNCHES["gather_l2_tiled"] - hops0 - 1
+        row.update(hops=hops,
+                   launches_per_hop=row["kernel_launches"] / max(hops, 1),
+                   ms_per_hop=row["wall_ms"] / max(hops, 1),
+                   n=idx.graph.n, card=card)
         print(f"[profile] {json.dumps(row)}")
 
 
@@ -1151,7 +1221,8 @@ def main(argv=None) -> int:
     timed("exact_build", exact_build_phase, torch, card, counts)
     timed("baselines", baselines_phase, torch, card)
     timed("mips", mips_phase, torch, card, counts)
-    lm_rows, lm = timed("lm", lm_phase, torch, card, counts)
+    lm_rows, lm = timed("lm", lm_phase, torch, card, counts,
+                        ROOT / "build" / "profile")
     rows.update(lm_rows)
 
     kernels = []

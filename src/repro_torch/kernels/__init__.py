@@ -9,8 +9,10 @@ attention (``sm_90a``).
                and ``fused_estimate`` (the whole RaBitQ estimate, gathered
                by id: the approximate tier), from ``csrc/fused_estimate.cu``
     flashattn/ — causal / sliding-window flash-attention forward with
-               grouped KV heads (the LM's attention), from
-               ``csrc/flash_attn.cu``
+               grouped KV heads (the LM's attention): bf16 on the tensor
+               cores from ``csrc/flash_attn_sm90.cu`` (wgmma, TMA; its
+               PTX wrappers in ``csrc/sm90_ptx.cuh``), float32 on the CUDA
+               cores from ``csrc/flash_attn.cu``
 
 Each has ``ops.py`` (the wrapper: checks, launch count, CUDA launch or the
 plain version on a CPU tensor) and ``ref.py`` (the plain PyTorch version).

@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles alone with
 ``nvcc`` for ``sm_90a`` into ``build/kernels/<name>-<hash>.so`` under the
-checkout's root (``.gitignore`` lists ``build/``).  The hash is the
-source's content hash, so an edited source is rebuilt and a stale library
-is never loaded.  ``build_all`` starts one ``nvcc`` per source, all at once.
+checkout's root (``.gitignore`` lists ``build/``), with the compiler's
+output beside it as ``<name>-<hash>.log``.  The hash covers the source,
+every ``csrc`` header it includes (``#include "x.cuh"``, followed
+through headers), and its flags, so an edited source or header is rebuilt
+and a stale library is never loaded.  ``EXTRA_FLAGS`` gives a source flags
+of its own.  ``build_all`` starts one ``nvcc`` per source, all at once.
 
 A missing ``nvcc`` or a failed compile raises with the compiler's output;
 nothing falls back to the plain versions.
@@ -15,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -22,9 +26,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("gather_l2", "bitdot", "fused_estimate", "batched_l2",
-           "flash_attn")
+           "flash_attn", "flash_attn_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# flags of one source only: ptxas reports the tensor-core kernel's
+# registers, spills and any serialised wgmma into its build log
+EXTRA_FLAGS = {"flash_attn_sm90": ("-Xptxas=-v",)}
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -37,15 +45,41 @@ def _nvcc() -> str:
     return found
 
 
+def _headers(path: Path, seen: dict) -> dict:
+    """The ``csrc`` headers ``path`` includes, directly or through other
+    headers, as {name: bytes}."""
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        header = CSRC / inc.decode()
+        if header.name not in seen and header.exists():
+            seen[header.name] = header.read_bytes()
+            _headers(header, seen)
+    return seen
+
+
+def _flags(name: str) -> tuple:
+    return (*NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()))
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for header, text in sorted(_headers(src, {}).items()):
+        h.update(header.encode() + b"\0" + text)
+    h.update("\0".join(_flags(name)).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_log(name: str) -> str:
+    """The compiler's output of the library ``load(name)`` would load, or
+    "" if it has not been built."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def _start(name: str):
     out = library_path(name)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, tmp, cmd, proc
@@ -62,6 +96,7 @@ def build_all(names=SOURCES) -> list[str]:
             raise RuntimeError(f"nvcc failed for {name}.cu "
                                f"(exit {proc.returncode}): {' '.join(cmd)}\n"
                                f"{text}")
+        out.with_suffix(".log").write_text(text)
         os.replace(tmp, out)
     return [name for name, *_ in started]
 
@@ -75,8 +110,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+TENSOR_MAP_ERROR = 10000     # + the CUresult of a refused TMA tensor map
+
+
 def check(rc: int, name: str) -> None:
-    """Raise if a launch returned a non-zero ``cudaGetLastError``."""
+    """Raise if a launch returned a non-zero ``cudaGetLastError`` (or
+    ``TENSOR_MAP_ERROR`` + the driver's ``CUresult`` for a tensor map)."""
+    if rc >= TENSOR_MAP_ERROR:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: the driver "
+                           f"refused a TMA tensor map, CUresult "
+                           f"{rc - TENSOR_MAP_ERROR}")
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")

@@ -1,5 +1,7 @@
-// Flash-attention forward: causal / sliding-window / bidirectional softmax
-// attention with grouped KV heads, online softmax, f32 running state.
+// Flash-attention forward, float32, on the CUDA cores: causal / sliding-
+// window / bidirectional softmax attention with grouped KV heads, online
+// softmax, f32 running state.  bf16 inputs go to the tensor-core kernel in
+// flash_attn_sm90.cu.
 //
 //   o[b, s, h, :] = sum_t softmax_t(q[b, s, h, :] . k[b, t, h / G, :] / sqrt(hd))
 //                   * v[b, t, h / G, :]
@@ -8,16 +10,16 @@
 // s - t < window when a window is given.  q is [B, S, H, hd] and k, v are
 // [B, S, KV, hd] with G = H / KV, read in place through their element
 // strides (no [B*H, S, hd] transpose, no GQA repeat, no padding to the
-// tile); o is a new contiguous [B, S, H, hd] in q's dtype.  Inputs are
-// float32 or bfloat16; scores, the running max and denominator and the
-// output sum are float32, and p stays float32 before the PV product (as in
-// the TPU kernel; the blockwise jnp version rounds p to V's dtype).
+// tile); o is a new contiguous [B, S, H, hd] float32.  Scores, the running
+// max and denominator, p and the output sum are float32, as in the TPU
+// kernel.
 //
 // Replaces the TPU kernel flash_attention_pallas in
-// src/repro/kernels/flashattn/flashattn.py.  There the grid's kv axis ran
-// in order on one core and carried acc / m / l in VMEM scratch from step to
-// step.  Here one block owns one (b, h, 64-row query tile) and loops over
-// the 64-key tiles itself, so nothing is carried between blocks; key tiles
+// src/repro/kernels/flashattn/flashattn.py for float32 inputs.  There the
+// grid's kv axis ran in order on one core and carried acc / m / l in VMEM
+// scratch from step to step.  Here one block owns one (b, h, 64-row query
+// tile) and loops over the 64-key tiles itself, so nothing is carried
+// between blocks; key tiles
 // wholly outside the causal / window band are never visited (the TPU
 // kernel's pl.when(run)).  Query tiles are issued heaviest first (the last
 // tile of a causal row sees the most keys), so the tail of the grid is
@@ -34,12 +36,10 @@
 //
 // Bound on the card: operations.  At the LM prefill's shape (S = 32,768,
 // 9 heads, hd = 64, causal) the work is 4 hd S(S+1)/2 H = 1.24e12 operations
-// against 0.1 GB of q, k, v and o: at the bf16 tensor-core rate that is
-// 1.25 ms, the bytes 0.03 ms.  This kernel does its products on the CUDA
-// cores in float32 (67 TFLOP/s at most), so it sits far above that bound;
-// the tensor-core redesign (mma / wgmma, TMA-fed tiles) is the next step.
+// against 0.2 GB of q, k, v and o in float32: 18.5 ms at the float32 rate
+// of the CUDA cores (67 TFLOP/s), which is where this kernel does its
+// products.  No main path runs it: the LM runs in bf16.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,14 +49,6 @@ constexpr int kBQ = 64;            // query rows of a block
 constexpr int kBK = 64;            // keys of a tile
 constexpr int kThreads = 256;
 constexpr float kNeg = -1e30f;     // masked score (finite, as the TPU kernel's)
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Strides {
   int64_t b, s, h, d;
@@ -69,21 +61,21 @@ constexpr int smem_floats() {
 
 // Rows [row0, row0 + rows) of one head of x into a float32 tile with row
 // stride ld; rows at or past S are zero (so masked keys multiply zeros).
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* x, Strides st,
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* x, Strides st,
                                           int b, int head, int row0, int rows, int S) {
-  const T* base = x + b * st.b + head * st.h;
+  const float* base = x + b * st.b + head * st.h;
   for (int i = threadIdx.x; i < rows * HD; i += kThreads) {
     const int r = i / HD, c = i % HD;
     const int s = row0 + r;
-    dst[r * ld + c] = s < S ? to_f32(base[s * st.s + c * st.d]) : 0.f;
+    dst[r * ld + c] = s < S ? base[s * st.s + c * st.d] : 0.f;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  Strides qs, Strides ks, Strides vs, int S, int H, int groups,
                  float scale_log2, int causal, int window) {
   constexpr int LD = HD + 4;       // padded row of Q and K tiles
@@ -101,7 +93,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = h / groups;
   const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
 
-  load_tile<T, HD>(Qs, LD, q, qs, b, h, q0, kBQ, S);
+  load_tile<HD>(Qs, LD, q, qs, b, h, q0, kBQ, S);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -120,8 +112,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();               // the previous tile's readers are done
-    load_tile<T, HD>(Ks, LD, k, ks, b, kvh, k0, kBK, S);
-    load_tile<T, HD>(Vs, HD, v, vs, b, kvh, k0, kBK, S);
+    load_tile<HD>(Ks, LD, k, ks, b, kvh, k0, kBK, S);
+    load_tile<HD>(Vs, HD, v, vs, b, kvh, k0, kBK, S);
     __syncthreads();
 
     float s[4][4];
@@ -204,13 +196,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int s = q0 + 4 * rg + i;
     if (s >= S) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* row = o + (((int64_t)b * S + s) * H + h) * HD;
+    float* row = o + (((int64_t)b * S + s) * H + h) * HD;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) row[cg + 16 * c] = from_f32<T>(acc[i][c] * inv);
+    for (int c = 0; c < NC; ++c) row[cg + 16 * c] = acc[i][c] * inv;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, Strides qs,
            Strides ks, Strides vs, int B, int S, int H, int KV, int causal,
            int window, cudaStream_t stream) {
@@ -218,48 +210,43 @@ int launch(const void* q, const void* k, const void* v, void* o, Strides qs,
   // The attribute belongs to the current device, so it is set at every
   // launch (a host-side call, cheap beside the kernel), not once a process.
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)HD);
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), qs, ks, vs, S, H, H / KV, scale_log2, causal, window);
+  flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), qs, ks, vs, S, H, H / KV,
+      scale_log2, causal, window);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
                 Strides qs, Strides ks, Strides vs, int B, int S, int H, int KV,
                 int causal, int window, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, qs, ks, vs, B, S, H, KV, causal, window, stream);
-    case 32: return launch<T, 32>(q, k, v, o, qs, ks, vs, B, S, H, KV, causal, window, stream);
-    case 64: return launch<T, 64>(q, k, v, o, qs, ks, vs, B, S, H, KV, causal, window, stream);
-    case 96: return launch<T, 96>(q, k, v, o, qs, ks, vs, B, S, H, KV, causal, window, stream);
-    case 128: return launch<T, 128>(q, k, v, o, qs, ks, vs, B, S, H, KV, causal, window, stream);
+    case 16: return launch<16>(q, k, v, o, qs, ks, vs, B, S, H, KV, causal, window, stream);
+    case 32: return launch<32>(q, k, v, o, qs, ks, vs, B, S, H, KV, causal, window, stream);
+    case 64: return launch<64>(q, k, v, o, qs, ks, vs, B, S, H, KV, causal, window, stream);
+    case 96: return launch<96>(q, k, v, o, qs, ks, vs, B, S, H, KV, causal, window, stream);
+    case 128: return launch<128>(q, k, v, o, qs, ks, vs, B, S, H, KV, causal, window, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, in the order
-// (batch, sequence, head, head_dim).  window <= 0 means no window.  o must be
+// float32 q, k, v, o.  Strides are in elements, in the order (batch,
+// sequence, head, head_dim).  window <= 0 means no window.  o must be
 // contiguous [B, S, H, hd].  Returns cudaGetLastError() of the launch.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                              int dtype, int B, int S, int H, int KV, int hd,
+                              int B, int S, int H, int KV, int hd,
                               int64_t qsb, int64_t qss, int64_t qsh, int64_t qsd,
                               int64_t ksb, int64_t kss, int64_t ksh, int64_t ksd,
                               int64_t vsb, int64_t vss, int64_t vsh, int64_t vsd,
                               int causal, int window, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   const Strides qs{qsb, qss, qsh, qsd}, ks{ksb, kss, ksh, ksd}, vs{vsb, vss, vsh, vsd};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, o, qs, ks, vs, B, S, H, KV, causal, window, st);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, qs, ks, vs, B, S, H, KV, causal,
-                                      window, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_hd(hd, q, k, v, o, qs, ks, vs, B, S, H, KV, causal, window,
+                     (cudaStream_t)stream);
 }

@@ -1,4 +1,5 @@
-"""Wrapper of the CUDA flash-attention kernel (``csrc/flash_attn.cu``).
+"""Wrapper of the CUDA flash-attention kernels (``csrc/flash_attn_sm90.cu``
+for bf16, ``csrc/flash_attn.cu`` for float32).
 
 ``flash_attention`` replaces ``flash_attention_pallas``
 (``src/repro/kernels/flashattn/flashattn.py``) and its wrapper
@@ -6,12 +7,16 @@
 k / v ``[B, S, KV, hd]`` → ``[B, S, H, hd]`` in q's dtype, causal and / or
 sliding-window masked, query head h reading KV head ``h // (H / KV)``.
 
-On a CUDA tensor the wrapper launches the kernel on q's card, on that
-card's current stream, and raises if the launch fails; the kernel reads q,
-k and v in place through their strides (no transpose, repeat or padding
-copy).  On a CPU tensor it
-runs the plain full-matrix version in ``ref.py`` on KV repeated to H heads.
-Nothing else: no fallback hides the kernel.
+On a CUDA tensor the wrapper launches a kernel on q's card, on that card's
+current stream, and raises if the launch fails.  bf16 goes to the tensor-core
+kernel, which reads q, k and v by TMA through tensor maps made from their
+strides (no transpose, repeat or padding copy); a tensor those maps cannot
+describe (last stride not 1, a base or stride not 16-byte aligned, or dims
+that do not nest, as in a transposed view) is first made contiguous and
+counted in ``COPIES``.  float32 goes to the CUDA-core kernel, which reads
+any strides.  On a CPU tensor it runs the plain full-matrix version in
+``ref.py`` on KV repeated to H heads.  Nothing else: no fallback hides the
+kernel.
 
 ``LAUNCHES`` counts kernel launches; only a CUDA launch adds to it.
 """
@@ -27,9 +32,10 @@ from .. import _build
 from . import ref
 
 LAUNCHES = {"flash_attention": 0}
-HEAD_DIMS = (16, 32, 64, 96, 128)          # the kernel's template instances
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_YZ = 65535                       # H and B ride grid.y and grid.z
+COPIES = {"flash_attention": 0}            # bf16 inputs copied for TMA
+HEAD_DIMS = (16, 32, 64, 96, 128)          # the kernels' template instances
+_DTYPES = (torch.float32, torch.bfloat16)
+_MAX_GRID_YZ = 65535                       # f32 kernel: H and B ride grid.y, .z
 
 
 def _check(q, k, v, window):
@@ -50,6 +56,63 @@ def _check(q, k, v, window):
         raise ValueError(f"window must be at least 1, got {window}")
 
 
+def tma_strides(x: torch.Tensor) -> Optional[tuple]:
+    """(batch, sequence, head) element strides of a bf16 [B, S, heads, hd]
+    tensor as the kernel's 4-d tensor map takes them, or None where the map
+    cannot describe ``x``: the last stride must be 1, the base and every
+    other stride 16-byte aligned, and each dim must step over the whole of
+    the one inside it.  A dim of size 1 takes the stride a contiguous
+    tensor would give it (its own is never followed)."""
+    B, S, heads, hd = x.shape
+    sb, ss, sh, sd = x.stride()
+    if (hd > 1 and sd != 1) or x.data_ptr() % 16:
+        return None
+    sh = hd if heads == 1 else sh
+    ss = heads * sh if S == 1 else ss
+    sb = S * ss if B == 1 else sb
+    if any(s % 8 for s in (sh, ss, sb)):    # 8 bf16 = 16 bytes
+        return None
+    if sh < hd or ss < heads * sh or sb < S * ss:
+        return None
+    return sb, ss, sh
+
+
+def _for_tma(x: torch.Tensor) -> torch.Tensor:
+    if tma_strides(x) is not None:
+        return x
+    COPIES["flash_attention"] += 1
+    return x.contiguous()
+
+
+def _launch_sm90(q, k, v, out, causal, window):
+    B, S, H, hd = q.shape
+    q, k, v = (_for_tma(x) for x in (q, k, v))
+    fn = _build.load("flash_attn_sm90").flash_attn_sm90_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
+        [ctypes.c_int64] * 9 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+              H, k.shape[2], hd, *tma_strides(q), *tma_strides(k),
+              *tma_strides(v), int(causal),
+              0 if window is None else int(window),
+              torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _launch_f32(q, k, v, out, causal, window):
+    B, S, H, hd = q.shape
+    if B > _MAX_GRID_YZ or H > _MAX_GRID_YZ:
+        raise ValueError(f"B={B} or H={H} beyond what the kernel takes")
+    fn = _build.load("flash_attn").flash_attn_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
+        [ctypes.c_int64] * 12 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              B, S, H, k.shape[2], hd, *q.stride(),
+              *k.stride(), *v.stride(), int(causal),
+              0 if window is None else int(window),
+              torch.cuda.current_stream(q.device).cuda_stream)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
@@ -67,18 +130,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} is not one the kernel takes "
                          f"{HEAD_DIMS}")
-    if B > _MAX_GRID_YZ or H > _MAX_GRID_YZ:
-        raise ValueError(f"B={B} or H={H} beyond what the kernel takes")
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
-    fn = _build.load("flash_attn").flash_attn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
-        [ctypes.c_int64] * 12 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    launch = _launch_sm90 if q.dtype == torch.bfloat16 else _launch_f32
     with torch.cuda.device(q.device):       # launch in q's card's context
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _DTYPES[q.dtype], B, S, H, KV, hd, *q.stride(), *k.stride(),
-                *v.stride(), int(causal), 0 if window is None else int(window),
-                torch.cuda.current_stream(q.device).cuda_stream)
+        rc = launch(q, k, v, out, causal, window)
     _build.check(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def sm90_resources(hd: int = 64) -> dict:
+    """The compiled resources of the bf16 tensor-core kernel's instance for
+    ``hd`` (``cudaFuncGetAttributes`` and the launch's shared memory)."""
+    lib = _build.load("flash_attn_sm90")
+    out = (ctypes.c_int * 6)()
+    lib.flash_attn_sm90_resources.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.flash_attn_sm90_resources.restype = ctypes.c_int
+    _build.check(lib.flash_attn_sm90_resources(hd, ctypes.addressof(out)),
+                 "flash_attention (resources)")
+    return dict(zip(("registers", "local_bytes", "static_smem_bytes",
+                     "dynamic_smem_bytes", "max_threads", "block_keys"),
+                    list(out)))
+
+
+def sm90_probe(q, k, v, p) -> tuple:
+    """One warpgroup of the bf16 kernel's products on one tile each, for a
+    card test of its layouts and wgmma descriptors: q [64, hd], k / v [BK,
+    hd] bf16 and p [64, BK] f32, contiguous on the card → (q kᵀ,
+    (p_hi + p_lo) v) in f32, p_hi = bf16(p), p_lo = bf16(p − p_hi).  Not
+    counted in ``LAUNCHES``."""
+    hd = q.shape[1]
+    s = torch.empty((64, k.shape[0]), dtype=torch.float32, device=q.device)
+    o = torch.empty((64, hd), dtype=torch.float32, device=q.device)
+    fn = _build.load("flash_attn_sm90").flash_attn_sm90_probe
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
+                s.data_ptr(), o.data_ptr(), hd,
+                torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_attention (probe)")
+    return s, o

@@ -16,11 +16,15 @@ plain version over ±1 signs), batched_l2 to rtol 1e-5 / atol 1e-4 in f32
 on the card must give the ids of their plain paths on ≥ 99% of queries
 (float sum order can swap a tie).  The flash-attention kernel is held
 against the full-matrix plain version to rtol/atol 2e-5 in f32 (the same
-f32 math in another order; the JAX kernel test's tolerance); on bf16
-inputs against the plain version in f32 on the same values, to half a bf16
-ulp of each value plus 2^-12 of its row's RMS (``ref.err_ratio``: the
-kernel keeps p and its sums in f32 and rounds only its output).
+f32 math in another order; the JAX kernel test's tolerance); its bf16
+tensor-core kernel against the plain version in f32 on the same values, to
+half a bf16 ulp of each value plus 2^-12 of its row's RMS
+(``ref.err_ratio``: the kernel keeps p to ~16 bits as two bf16 terms and
+its sums in f32, and rounds only its output), and its two wgmma products
+on one tile against the same products in f32 (rtol/atol 1e-5).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -53,6 +57,17 @@ FLASH_CASES = [(1, 1, 2, 1, True, None), (2, 100, 6, 3, True, None),
                (1, 100, 4, 4, False, None), (1, 130, 4, 2, True, 7),
                (1, 4097, 2, 1, True, None), (1, 4097, 4, 2, True, 300),
                (1, 4097, 2, 2, False, None)]
+# and for the bf16 tensor-core kernel (128-row query tiles, 128-key tiles
+# at hd <= 64 and 64-key tiles above): S past one query or key tile, windows
+# 1, 63, 64, 65 and 129 across tile edges, GQA groups 1, 3 and 4, B = 2,
+# non-causal with and without a window
+FLASH_BF16_CASES = [(2, 300, 4, 4, True, 1), (1, 257, 6, 2, True, 63),
+                    (1, 257, 8, 2, True, 64), (2, 385, 3, 1, True, 65),
+                    (1, 1000, 4, 1, True, 129), (1, 129, 4, 1, True, None),
+                    (2, 200, 4, 4, False, None), (1, 333, 6, 2, False, 65)]
+# the bf16 prefill of the smoke config against plain attention: chip_smoke's
+# bound on the full-width model's logits (LM_LOGIT_TOL)
+LM_LOGIT_TOL = 0.2
 
 
 def _l2_inputs(B, M, d, seed=7, n=200):
@@ -272,7 +287,8 @@ def _flash_plain(q, k, v, causal, window):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", flash_ops.HEAD_DIMS)
 def test_flash_attention_kernel_on_card(cuda, hd, dtype):
-    for B, S, H, KV, causal, window in FLASH_CASES:
+    cases = FLASH_CASES + (FLASH_BF16_CASES if dtype == torch.bfloat16 else [])
+    for B, S, H, KV, causal, window in cases:
         q, k, v = _flash_inputs(B, S, H, KV, hd, dtype, cuda, seed=S + hd)
         before = flash_ops.LAUNCHES["flash_attention"]
         out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
@@ -287,7 +303,45 @@ def test_flash_attention_kernel_on_card(cuda, hd, dtype):
         else:
             want = _flash_plain(q.float(), k.float(), v.float(), causal,
                                 window)
-            assert flash_ref.err_ratio(out, want) <= 1.0
+            ratio = flash_ref.err_ratio(out, want)
+            assert ratio <= 1.0, (B, S, H, KV, causal, window, ratio)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", flash_ops.HEAD_DIMS)
+def test_flash_sm90_products_match_matmul(cuda, hd):
+    """One warpgroup of the tensor-core kernel on one tile each: q kᵀ
+    (wgmma, Q and K K-major from 128-byte-swizzled TMA tiles) and
+    (p_hi + p_lo) v (P from registers, V an MN-major operand) equal the
+    same products in f32 (exact bf16 products, f32 sums in another order:
+    rtol/atol 1e-5 of the scale)."""
+    bk = flash_ops.sm90_resources(hd)["block_keys"]
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    q = torch.randn((64, hd), generator=g, device=cuda).bfloat16()
+    k = torch.randn((bk, hd), generator=g, device=cuda).bfloat16()
+    v = torch.randn((bk, hd), generator=g, device=cuda).bfloat16()
+    p = torch.rand((64, bk), generator=g, device=cuda)
+    p_hi = p.bfloat16().float()
+    p_lo = (p - p_hi).bfloat16().float()
+    want_s = q.float() @ k.float().T
+    want_o = (p_hi + p_lo) @ v.float()
+    s, o = flash_ops.sm90_probe(q, k, v, p)
+    torch.testing.assert_close(s, want_s, rtol=1e-5, atol=1e-5 * hd ** 0.5)
+    torch.testing.assert_close(o, want_o, rtol=1e-5, atol=1e-5 * bk ** 0.5)
+
+
+@pytest.mark.cuda
+def test_flash_sm90_resources(cuda):
+    """The tensor-core kernel's compiled instances: within the register and
+    shared-memory limits of one block an SM, and no spills at hd = 64 (the
+    LM's)."""
+    for hd in flash_ops.HEAD_DIMS:
+        res = flash_ops.sm90_resources(hd)
+        print(f"hd={hd}: {res}")
+        assert 0 < res["registers"] <= 255
+        assert res["dynamic_smem_bytes"] + res["static_smem_bytes"] <= 232448
+        assert res["max_threads"] >= 384
+    assert flash_ops.sm90_resources(64)["local_bytes"] == 0
 
 
 @pytest.mark.cuda
@@ -299,7 +353,9 @@ def test_flash_attention_reads_strided_inputs(cuda):
                         dtype=torch.bfloat16)
     q, k, v = fused.split([H, KV, KV], dim=2)
     assert not q.is_contiguous()
+    copies = flash_ops.COPIES["flash_attention"]
     out = flash_ops.flash_attention(q, k, v, window=50)
+    assert flash_ops.COPIES["flash_attention"] == copies
     want = flash_ops.flash_attention(q.contiguous(), k.contiguous(),
                                      v.contiguous(), window=50)
     torch.testing.assert_close(out, want, rtol=0, atol=0)
@@ -308,6 +364,29 @@ def test_flash_attention_reads_strided_inputs(cuda):
     torch.testing.assert_close(
         flash_ops.flash_attention(qt, kt, kt),
         _flash_plain(qt, kt, kt, True, None), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_copies_what_tma_cannot_read(cuda):
+    """bf16 inputs no TMA tensor map describes (a last stride of 2, a
+    transposed view) are made contiguous, counted once each in COPIES, and
+    give what their contiguous copies give."""
+    B, S, H, KV, hd = 2, 200, 4, 2, 64
+    wide = torch.randn((B, S, H, 2 * hd), device=cuda, dtype=torch.bfloat16)
+    q = wide[..., ::2]
+    kt = torch.randn((B, KV, S, hd), device=cuda,
+                     dtype=torch.bfloat16).transpose(1, 2)
+    v = torch.randn((B, S, KV, hd), device=cuda, dtype=torch.bfloat16)
+    assert flash_ops.tma_strides(q) is None
+    assert flash_ops.tma_strides(kt) is None
+    assert flash_ops.tma_strides(v) is not None
+    copies = flash_ops.COPIES["flash_attention"]
+    out = flash_ops.flash_attention(q, kt, v, window=70)
+    assert flash_ops.COPIES["flash_attention"] == copies + 2
+    want = flash_ops.flash_attention(q.contiguous(), kt.contiguous(), v,
+                                     window=70)
+    assert flash_ops.COPIES["flash_attention"] == copies + 2
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -356,3 +435,24 @@ def test_lm_on_card_launches_the_kernel(cuda):
     torch.testing.assert_close(logits, kern, rtol=1e-4, atol=1e-4)
     out = generate(cfg, params, toks, max_new=5, max_seq=64)
     assert out.shape == (2, 45) and (out[:, :40] == toks).all()
+
+
+@pytest.mark.cuda
+def test_lm_bf16_prefill_on_card_matches_plain_attention(cuda):
+    """The smoke config in bf16: prefill through the tensor-core kernel
+    (one launch a layer, no copy) against plain attention, last-position
+    logits within chip_smoke's bound."""
+    cfg = dataclasses.replace(get_arch("smollm-135m").smoke_cfg,
+                              dtype=torch.bfloat16)
+    params = tf.init(cfg, torch.Generator(device=cuda).manual_seed(1),
+                     device=cuda)
+    lm = port_data.make_markov_lm(cfg.vocab, seed=1)
+    toks = torch.from_numpy(port_data.lm_batch(lm, 2, 300, step=0)[0]).to(cuda)
+    before = flash_ops.LAUNCHES["flash_attention"]
+    copies = flash_ops.COPIES["flash_attention"]
+    kern = tf.prefill(cfg, params, toks)
+    assert flash_ops.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    assert flash_ops.COPIES["flash_attention"] == copies
+    plain = tf.prefill(cfg, params, toks, backend="jnp")
+    assert torch.isfinite(kern).all()
+    assert float((kern.float() - plain.float()).abs().max()) <= LM_LOGIT_TOL

@@ -10,9 +10,13 @@ same f32 math summed in another order).  The port's blockwise
 inputs (both round p to bf16 before the PV product, but at other points of
 the sum).  The CUDA kernel itself is held against the plain version in
 ``tests/test_torch_cuda.py`` (marker ``cuda``); on bf16 inputs, to the
-bound of ``ref.err_ratio``, whose reach is checked here on the kernel's
-arithmetic (p and sums in f32, the output rounded to bf16).
+bound of ``ref.err_ratio``, whose reach is checked here on the kernels'
+arithmetic: the CUDA-core kernel's (p and sums in f32, the output rounded
+to bf16) and the tensor-core kernel's (bf16 products, p split into two
+bf16 terms for the PV product, f32 sums, the output rounded once).
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -100,6 +104,57 @@ def test_bf16_bound_holds_rounding_and_sees_one_missing_key(S, window):
         q, k, v, window=cut), want) > 1.0
     assert flash_ref.err_ratio(common.flash_attention(
         q, k, v, window=window), want) > 1.0
+
+
+def _tensor_core_arithmetic(q, k, v, window, split=True, block=128):
+    """The bf16 tensor-core kernel's arithmetic on the CPU: scores from bf16
+    q·k products summed in f32, an online softmax over 128-key tiles in f32
+    (exp2 with the scale folded in), p carried into the PV product as
+    bf16(p) + bf16(p − bf16(p)) (or as bf16(p) alone when ``split`` is
+    False), PV summed in f32, the row sums from the f32 p, and the output
+    rounded to bf16 once."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    qf = q.float().transpose(1, 2)                           # [B, H, S, hd]
+    kf = k.float().repeat_interleave(G, 2).transpose(1, 2)
+    vf = v.float().repeat_interleave(G, 2).transpose(1, 2)
+    scale = math.log2(math.e) / math.sqrt(hd)
+    pos = torch.arange(S)
+    m = torch.full((B, H, S, 1), -1e30)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, hd))
+    for k0 in range(0, S, block):
+        kpos = pos[k0:k0 + block]
+        ok = kpos[None, :] <= pos[:, None]
+        if window is not None:
+            ok &= pos[:, None] - kpos[None, :] < window
+        s = torch.where(ok, qf @ kf[:, :, k0:k0 + block].transpose(-1, -2),
+                        torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * scale)
+        corr = torch.exp2(m - m_new)
+        p = torch.where(ok, torch.exp2(s * scale - m_new), torch.tensor(0.0))
+        p_hi = p.bfloat16().float()
+        p_lo = (p - p_hi).bfloat16().float() if split else 0.0
+        acc = acc * corr + (p_hi + p_lo) @ vf[:, :, k0:k0 + block]
+        l = l * corr + p.sum(-1, keepdim=True)
+        m = m_new
+    return (acc / l).transpose(1, 2).bfloat16()
+
+
+@pytest.mark.parametrize("S,window", [(1000, None), (1000, 100), (321, 7)])
+def test_bf16_bound_holds_the_tensor_core_arithmetic(S, window):
+    """The tensor-core kernel's arithmetic (bf16 products, p split in two
+    bf16 terms, f32 sums, one rounding) stays within ``err_ratio``'s bound
+    against the plain blockwise version in f32 on the same values; the same
+    arithmetic with p in one bf16 term breaks it."""
+    q, k, v = (torch.from_numpy(x).bfloat16()
+               for x in _qkv(1, S, 4, 2, 64, seed=S))
+    want = common.flash_attention(q.float(), k.float(), v.float(),
+                                  window=window)
+    assert flash_ref.err_ratio(_tensor_core_arithmetic(q, k, v, window),
+                               want) <= 1.0
+    assert flash_ref.err_ratio(_tensor_core_arithmetic(
+        q, k, v, window, split=False), want) > 1.0
 
 
 def test_blockwise_jnp_backend_and_ragged_blocks():

@@ -173,3 +173,25 @@ def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.setattr(_build.os.path, "exists", lambda _: False)
     with pytest.raises(RuntimeError, match="nvcc"):
         _build._nvcc()
+
+
+def test_library_name_covers_included_headers_and_flags(monkeypatch,
+                                                        tmp_path):
+    """A library's name changes with an edit to any csrc header its source
+    includes, directly or through another header, and with its own extra
+    flags; an edit to a header it does not include leaves it as it was."""
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda.h>\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "c.cuh").write_text("// c\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "EXTRA_FLAGS", {})
+    first = _build.library_path("k")
+    (tmp_path / "c.cuh").write_text("// c, edited\n")
+    assert _build.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    second = _build.library_path("k")
+    assert second != first and second.name.startswith("k-")
+    monkeypatch.setattr(_build, "EXTRA_FLAGS", {"k": ("-lcuda",)})
+    assert _build.library_path("k") != second
+    assert _build.build_log("k") == ""
