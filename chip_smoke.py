@@ -23,15 +23,20 @@ non-zero and prints no result line):
                ``fused_estimate`` and ``batched_l2`` against their plain
                PyTorch versions on the same card tensors, at the shapes each
                path below gives them (base 1M × 128; ids [128, 1] in the
-               drain, [1024, 24] in the build's searches, [128, 24] in the
-               exact searches; codes [128, 24, 4] in the probe phase; the
+               drain, [1024, 24] in the build's searches and, over a base
+               1M × 129, in the MIPS build's, [128, 24] in the exact
+               searches; codes [128, 24, 4] in the probe phase; the
                estimate of ids [128, 24] over a 1M-row code table, W = 4 in
                the drain and W = 5 in MIPS; rows [1024, 25, 128] in the
-               build's neighbor selection; and W = 4's [128, 96] and the
-               JAX package's benchmark shape [64, 64, 128], on no path),
-               then timed with CUDA events over input sets that hold three
-               times the card's L2 (``torch.cdist`` timed beside
-               ``batched_l2`` as its library yardstick);
+               build's neighbor selection, [1024, 25, 129] in the MIPS
+               build's and [524, 128, 128] in the exact build's; and W =
+               4's [128, 96] and the JAX package's
+               benchmark shape [64, 64, 128], on no path), then timed with
+               CUDA events over input sets that hold three times the card's
+               L2 (``torch.cdist`` timed beside ``batched_l2`` as its
+               library yardstick); ``gather_l2_tiled`` and ``batched_l2``
+               each pick one of two kernels by d and alignment, and the
+               kernel picked at a path's shape must launch on that path;
 3. serve    — the port's ``launch.serve`` path: ``build_emqg`` on the card
                and ``AnnServer.drain`` over 512 queries; the served
                distances are the exact ones, the ids those of the plain
@@ -56,9 +61,11 @@ non-zero and prints no result line):
                most M, ≥ 99% of nodes reachable from the medoid (the
                reference's repair can leave a few cut off; ``knn`` has no
                repair), recall@10 of ``error_bounded_search`` printed;
-9. mips     — ``build_mips(quantized=True)`` at n = 50,000 and
-               ``mips_search`` for 256 queries: recall@10 against brute-force
-               inner product, ids against the plain path;
+9. mips     — ``build_mips(quantized=True)`` at n = 50,000 (its launches
+               counted as the path ``mips_build``: at d + 1 = 129 the
+               one-row-a-warp ``gather_l2_blocks`` and ``batched_l2_blocks``)
+               and ``mips_search`` for 256 queries: recall@10 against
+               brute-force inner product, ids against the plain path;
 10. lm      — smollm-135m at full width in bf16, weights from a seeded
                ``torch.Generator``: the ``flash_attention`` kernel (its bf16
                instance on the tensor cores, ``flash_attn_sm90.cu``) against
@@ -86,9 +93,11 @@ non-zero and prints no result line):
 Every kernel's launch count is set to 0 just before the path that runs it
 and read just after; a kernel that path never launched fails the run.  The
 ``kernels`` line reports each kernel at the shape of the path whose launch
-count it prints.  Each phase prints its seconds.  The line before the last
-is the card; the one before it the ``kernels`` JSON; the last line is the
-device JSON.  It needs one card and exits non-zero without one.
+count it prints (``gather_l2_tiled`` and ``batched_l2`` at two paths each;
+``kernel`` names the kernel behind the entry point, whose launches those
+are).  Each phase prints its seconds.  The line before the last is the
+card; the one before it the ``kernels`` JSON; the last line is the device
+JSON.  It needs one card and exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -246,14 +255,15 @@ def check_misses_l2(torch, name: str, footprint: int) -> None:
           f"under twice the {l2}-byte L2")
 
 
-# (kernel, B, M, the path that gives it this shape)
+# (kernel, B, M, d, the path that gives it this shape)
 GATHER_CASES = (
-    ("gather_l2_tiled", 128, 1, "drain"),            # start and probes: [B, W]
-    ("gather_l2_tiled", 1024, 24, "build"),          # searches: [block, W·M]
-    ("gather_l2_tiled", 128, 24, "exact_kernel_tiled"),
-    ("gather_l2_tiled", 128, 96, "W=4, no path here"),
-    ("gather_l2", 128, 24, "exact_kernel"),
-    ("gather_l2", 128, 96, "W=4, no path here"),
+    ("gather_l2_tiled", 128, 1, 128, "drain"),       # start and probes: [B, W]
+    ("gather_l2_tiled", 1024, 24, 128, "build"),     # searches: [block, W·M]
+    ("gather_l2_tiled", 128, 24, 128, "exact_kernel_tiled"),
+    ("gather_l2_tiled", 128, 96, 128, "W=4, no path here"),
+    ("gather_l2", 128, 24, 128, "exact_kernel"),
+    ("gather_l2", 128, 96, 128, "W=4, no path here"),
+    ("gather_l2_tiled", 1024, 24, 129, "mips_build"),   # MIPS's ragged d + 1
 )
 # (B, K = W·M, path) of the bitdot launch: the expand branch's estimates
 BITDOT_CASES = ((128, 24, "probe"), (128, 96, "W=4, no path here"))
@@ -261,14 +271,28 @@ BITDOT_CASES = ((128, 24, "probe"), (128, 96, "W=4, no path here"))
 # expand branch's estimates at d = 128, and MIPS's augmented d + 1 = 129
 ESTIMATE_CASES = ((128, 24, 4, 128, "drain"), (128, 24, 5, 129, "mips"))
 ESTIMATE_TABLES = 8            # distinct 1M-row code tables the timing cycles
-# (B, M, path) of the batched_l2 launch at d = 128: the selector's kept set
-# (max_keep = M + 1 in the degree alignment), and the JAX package's
-# benchmark shape
-BATCHED_CASES = ((1024, 25, "build"), (64, 64, "reference benchmark, no path"))
-# each kernel's row in the kernels line: the path whose launches it reports
-REPORTED = {"gather_l2_tiled": "drain", "gather_l2": "exact_kernel",
-            "bitdot": "probe", "fused_estimate": "drain",
-            "batched_l2": "build", "flash_attention": "lm_prefill"}
+# the kernels line: (kernel, path) of each row, which reports the kernel at
+# that path's shape and its launches there
+REPORTED = (("gather_l2_tiled", "drain"), ("gather_l2_tiled", "build"),
+            ("gather_l2_tiled", "mips_build"), ("gather_l2", "exact_kernel"),
+            ("bitdot", "probe"), ("fused_estimate", "drain"),
+            ("batched_l2", "build"), ("batched_l2", "exact_build"),
+            ("batched_l2", "mips_build"), ("flash_attention", "lm_prefill"))
+
+
+def batched_cases() -> tuple:
+    """(B, M, d, path) of the batched_l2 launch: the selector's kept set in
+    the build (max_keep = M + 1 in the degree alignment) at d = 128 and at
+    MIPS's ragged d + 1 = 129, the exact build's [block, max_degree] at
+    EXACT_N (``build_exact``'s own defaults), and the JAX package's
+    benchmark shape."""
+    from repro_torch.core.build_exact import _default_block, _default_max_degree
+
+    kept = (BUILD_PARAMS["block"], BUILD_PARAMS["max_degree"] + 1)
+    return ((*kept, 128, "build"), (*kept, 129, "mips_build"),
+            (_default_block(EXACT_N, 128), _default_max_degree(EXACT_N), 128,
+             "exact_build"),
+            (64, 64, 128, "reference benchmark, no path"))
 
 
 def _launch_counters() -> tuple:
@@ -276,11 +300,12 @@ def _launch_counters() -> tuple:
     from repro_torch.kernels.flashattn import ops as flash_ops
     from repro_torch.kernels.l2dist import ops as l2ops
 
-    return l2ops.LAUNCHES, bitdot_ops.LAUNCHES, flash_ops.LAUNCHES
+    return (l2ops.LAUNCHES, l2ops.KERNEL_LAUNCHES, bitdot_ops.LAUNCHES,
+            flash_ops.LAUNCHES)
 
 
 def kernel_counts() -> dict:
-    """Every kernel's launch count, by name."""
+    """Every entry point's and kernel's launch count, by name."""
     return {k: v for counts in _launch_counters() for k, v in counts.items()}
 
 
@@ -308,12 +333,17 @@ def kernel_phase(torch, card: str):
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    n, d = 1_000_000, 128
-    base = torch.randn((n, d), generator=g, device=dev)
+    n = 1_000_000
+    bases = {}
     replaces = {"gather_l2": "src/repro/kernels/l2dist/l2dist.py:87",
                 "gather_l2_tiled": "src/repro/kernels/l2dist/l2dist.py:145"}
     rows = {}
-    for name, B, M, path in GATHER_CASES:
+    for name, B, M, d, path in GATHER_CASES:
+        if d not in bases:
+            bases.clear()                # one 0.5 GB base at a time
+            torch.cuda.empty_cache()
+            bases[d] = torch.randn((n, d), generator=g, device=dev)
+        base = bases[d]
         sets = sets_for(torch, B * M * 4 * d)
         ids = torch.randint(0, n, (sets, B, M), generator=g, device=dev,
                             dtype=torch.int32)
@@ -349,8 +379,10 @@ def kernel_phase(torch, card: str):
         valid = int((ids >= 0).sum()) / sets
         nbytes = 4 * (B * M + uniq * d + B * d + B * M)
         bound_ms, bound_by = bound(nbytes, 3 * valid * d)
+        kernel = (l2ops.tiled_kernel(base, queries)
+                  if name == "gather_l2_tiled" else name)
         rows[(name, path)] = dict(
-            name=name, route="cuda",
+            name=name, kernel=kernel, route="cuda",
             source="src/repro_torch/kernels/csrc/gather_l2.cu",
             replaces=replaces[name], path=path,
             shape=f"ids[{B},{M}] base[{n},{d}]", max_abs_err=err, ms=ms,
@@ -358,6 +390,8 @@ def kernel_phase(torch, card: str):
             library_ms=None, timed_sets=sets, timed_mb=footprint / 1e6,
             call_us=call[0], plain_call_us=call[1])
         del ids
+    del base, bases
+    torch.cuda.empty_cache()
 
     W = 4
     shifts = torch.arange(32, device=dev, dtype=torch.int32)
@@ -394,17 +428,19 @@ def kernel_phase(torch, card: str):
             library_ms=None, timed_sets=sets, timed_mb=footprint / 1e6,
             call_us=call[0], plain_call_us=call[1])
         del codes
-    del base
     torch.cuda.empty_cache()
     rows.update(estimate_rows(torch, g, n))
-    rows.update(batched_l2_rows(torch, g, d))
+    rows.update(batched_l2_rows(torch, g))
     for r in rows.values():
-        print(f"[kernel] {r['name']} {r['shape']} ({r['path']}): err "
-              f"{r['max_abs_err']:.3g} ms {r['ms']:.5f} plain_ms "
-              f"{r['plain_ms']:.5f} bound_ms {r['bound_ms']:.5f} "
-              f"({r['bound_by']}); host µs a call {r['call_us']:.1f} "
-              f"(plain {r['plain_call_us']:.1f}); {r['timed_sets']} sets, "
-              f"{r['timed_mb']:.1f} MB ({card})")
+        lib = r["library_ms"]
+        print(f"[kernel] {r['name']} {r['shape']} ({r['path']}; "
+              f"{r.get('kernel', r['name'])}): err {r['max_abs_err']:.3g} ms "
+              f"{r['ms']:.5f} plain_ms {r['plain_ms']:.5f} bound_ms "
+              f"{r['bound_ms']:.5f} ({r['bound_by']}), "
+              f"{r['bound_ms'] / r['ms']:.3f} of the bound; library_ms "
+              f"{'none' if lib is None else f'{lib:.5f}'}; host µs a call "
+              f"{r['call_us']:.1f} (plain {r['plain_call_us']:.1f}); "
+              f"{r['timed_sets']} sets, {r['timed_mb']:.1f} MB ({card})")
     return rows
 
 
@@ -487,16 +523,15 @@ def estimate_rows(torch, g, n: int) -> dict:
     return rows
 
 
-def batched_l2_rows(torch, g, d: int) -> dict:
-    """batched_l2 at the build's and the reference benchmark's shapes; its
-    library yardstick is ``torch.cdist`` (the same work and a square
-    root)."""
+def batched_l2_rows(torch, g) -> dict:
+    """batched_l2 at the shapes of ``batched_cases()``; its library
+    yardstick is ``torch.cdist`` (the same work and a square root)."""
     from repro_torch.kernels.l2dist import ops as l2ops
     from repro_torch.kernels.l2dist import ref as l2ref
 
     dev = torch.device("cuda")
     rows = {}
-    for B, M, path in BATCHED_CASES:
+    for B, M, d, path in batched_cases():
         sets = sets_for(torch, B * M * d * 4)
         tiles = torch.randn((sets, B, M, d), generator=g, device=dev)
         queries = torch.randn((sets, B, d), generator=g, device=dev)
@@ -523,7 +558,8 @@ def batched_l2_rows(torch, g, d: int) -> dict:
         bound_ms, bound_by = bound(4 * (B * M * d + B * d + B * M),
                                    3 * B * M * d)
         rows[("batched_l2", path)] = dict(
-            name="batched_l2", route="cuda",
+            name="batched_l2", kernel=l2ops.batched_kernel(tiles[0], queries[0]),
+            route="cuda",
             source="src/repro_torch/kernels/csrc/batched_l2.cu",
             replaces="src/repro/kernels/l2dist/l2dist.py:60", path=path,
             shape=f"rows[{B},{M},{d}]", max_abs_err=err, ms=ms,
@@ -783,11 +819,13 @@ def mips_phase(torch, card: str, counts: dict) -> None:
 
     items = clustered_vectors(MIPS_N, 128, 48, seed=7)
     queries = clustered_vectors(256, 128, 48, seed=8)
+    reset_counts()
     t0 = time.perf_counter()
     mips = build_mips(items, BuildParams(**BUILD_PARAMS), quantized=True,
                       device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    counts["mips_build"] = kernel_counts()
     check(mips.index.codes.words == 5, "MIPS codes are not 5 words wide")
     plain = mips_search(mips, queries, k=10, backend="jnp")
     reset_counts()
@@ -804,7 +842,8 @@ def mips_phase(torch, card: str, counts: dict) -> None:
     print(f"[mips] n={MIPS_N} d=128+1: built in {build_s:.1f} s; recall@10 "
           f"against brute-force inner product {recall_at(res.ids, gt):.4f}; "
           f"ids equal to the plain path on {share:.4f} of 256 queries; "
-          f"launches {json.dumps(counts['mips'])} ({card})")
+          f"launches {json.dumps(counts['mips'])}; the build's "
+          f"{json.dumps(counts['mips_build'])} ({card})")
 
 
 def flash_rows(torch, card: str, cfg, S: int) -> dict:
@@ -889,8 +928,8 @@ def flash_rows(torch, card: str, cfg, S: int) -> dict:
                library_ms=library_ms)
     print(f"[kernel] flash_attention {row['shape']} (lm_prefill): err "
           f"{err:.3g} ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
-          f"{bound_ms:.4f} ({bound_by}) sdpa_ms {library_ms:.4f} (sdpa "
-          f"against the kernel: max diff {lib_err:.3g}); "
+          f"{bound_ms:.4f} ({bound_by}) library_ms (sdpa) {library_ms:.4f} "
+          f"(sdpa against the kernel: max diff {lib_err:.3g}); "
           f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the "
           f"bound, {ms / library_ms:.2f}x SDPA ({card})")
     check(ms <= FLASH_MAX_SDPA_RATIO * library_ms, f"flash_attention takes "
@@ -1225,10 +1264,15 @@ def main(argv=None) -> int:
                         ROOT / "build" / "profile")
     rows.update(lm_rows)
 
+    for (name, path), r in rows.items():
+        # each kernel behind an entry point ran on the path of its shape
+        if path in counts:
+            check(counts[path][r.get("kernel", name)] > 0,
+                  f"{r.get('kernel', name)} never launched on its path {path}")
     kernels = []
-    for name, path in REPORTED.items():
+    for name, path in REPORTED:
         r = dict(rows[(name, path)])
-        r["launches"] = counts[path][name]
+        r["launches"] = counts[path][r.get("kernel", name)]
         check(r["launches"] > 0, f"{name} never launched on its path {path}")
         kernels.append(r)
     print(f"[paths] launch counts by path: {json.dumps(counts)}")

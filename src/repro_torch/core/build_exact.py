@@ -50,6 +50,11 @@ def _default_block(n: int, d: int) -> int:
     return max(1, min(n, _CAND_BYTES // (4 * n * d)))
 
 
+def _default_max_degree(n: int) -> int:
+    """``min(n - 1, 8·⌈log2 n⌉ + 32)``: Lemma 2's O(log n) with room."""
+    return int(min(n - 1, 8 * np.ceil(np.log2(max(n, 2))) + 32))
+
+
 def build_exact(vectors, delta: float = 0.05, rule: str = "delta_emg",
                 max_degree: Optional[int] = None, block: Optional[int] = None,
                 kind: Optional[str] = None, device="cuda") -> GraphIndex:
@@ -67,7 +72,7 @@ def build_exact(vectors, delta: float = 0.05, rule: str = "delta_emg",
     vectors = torch.as_tensor(vectors, dtype=torch.float32).to(dev).contiguous()
     n, d = vectors.shape
     if max_degree is None:
-        max_degree = int(min(n - 1, 8 * np.ceil(np.log2(max(n, 2))) + 32))
+        max_degree = _default_max_degree(n)
     if block is None:
         block = _default_block(n, d)
 

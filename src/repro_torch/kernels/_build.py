@@ -29,9 +29,11 @@ SOURCES = ("gather_l2", "bitdot", "fused_estimate", "batched_l2",
            "flash_attn", "flash_attn_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-# flags of one source only: ptxas reports the tensor-core kernel's
-# registers, spills and any serialised wgmma into its build log
-EXTRA_FLAGS = {"flash_attn_sm90": ("-Xptxas=-v",)}
+# flags of one source only: ptxas reports the registers, spills and shared
+# memory of the tensor-core kernel (and any serialised wgmma) and of the
+# L2 kernels into their build logs
+EXTRA_FLAGS = {name: ("-Xptxas=-v",)
+               for name in ("flash_attn_sm90", "gather_l2", "batched_l2")}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -12,17 +12,27 @@
 // Hopper each [M, d] tile meets one query line, a batched matrix-vector
 // product with nothing for the tensor cores, so the kernel keeps the
 // difference form of the plain version: it costs nothing extra and decides
-// the occlusion test's near-ties as the plain version does.  The layout is
-// gather_l2.cu's without the gather: a block of 8 warps shares one query
-// line b in shared memory, each warp owns one (b, m) row, lanes read
-// consecutive float4s of the row, and a shuffle tree sums them.  A ragged d
-// (not a multiple of 4, or a misaligned rows pointer) takes the scalar path.
+// the occlusion test's near-ties as the plain version does.
 //
 // Bound on the card: bytes.  Every output reads one row of d floats once,
-// 3 flops per 4 bytes.
+// 3 flops per 4 bytes.  Two kernels; the wrapper (l2dist/ops.py) picks one:
+//
+//  * batched_l2_rows, where every load can be 16-byte aligned (d % 4 == 0,
+//    d <= 128, aligned rows and query lines, a query stride that is a
+//    multiple of 4): l2_rows.cuh's register kernel.  A warp owns 2 rows of
+//    one tile, reads its query line into registers beside them and issues
+//    every load before it reduces; small blocks, all of them busy (at
+//    M = 25 no warp of a block idles).
+//  * batched_l2_blocks, for every other shape (a ragged d such as 129, a
+//    wider row, a misaligned pointer or stride): a block of 8 warps shares
+//    one query line in shared memory, each warp owns one (b, m) row, lanes
+//    read consecutive float4s (scalar loads where d or rows is not
+//    aligned), and a shuffle tree sums them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "l2_rows.cuh"
 
 namespace {
 
@@ -67,8 +77,11 @@ __global__ void batched_l2_kernel(const float* __restrict__ rows,
 
 }  // namespace
 
-extern "C" int batched_l2(const float* rows, const float* q, float* out,
-                          int B, int M, int d, int64_t q_stride, void* stream) {
+extern "C" {
+
+// A block of 8 rows of one tile: any d, any alignment, any q_stride.
+int batched_l2_blocks(const float* rows, const float* q, float* out, int B, int M, int d,
+                      int64_t q_stride, void* stream) {
   if (B == 0 || M == 0) return 0;
   dim3 grid((M + kRowsPerBlock - 1) / kRowsPerBlock, B);
   dim3 block(32 * kRowsPerBlock);
@@ -80,3 +93,12 @@ extern "C" int batched_l2(const float* rows, const float* q, float* out,
     batched_l2_kernel<false><<<grid, block, smem, (cudaStream_t)stream>>>(rows, q, out, M, d, q_stride);
   return (int)cudaGetLastError();
 }
+
+// The register kernel: d % 4 == 0, d <= 128, rows, q and q_stride aligned.
+int batched_l2_rows(const float* rows, const float* q, float* out, int B, int M, int d,
+                    int64_t q_stride, void* stream) {
+  return l2rows::launch<false>(rows, nullptr, q, q_stride, out, 0, B, M, d,
+                               (cudaStream_t)stream);
+}
+
+}  // extern "C"

@@ -5,21 +5,33 @@
 //
 // Replaces the TPU kernels gather_l2_pallas (one row per grid step) and
 // gather_l2_tiled_pallas (R row DMAs per grid step), both in
-// src/repro/kernels/l2dist/l2dist.py.  One template serves both entry
-// points: a block of R warps shares one query line b, and each warp owns one
-// (b, m) row.  gather_l2 launches R = 1, gather_l2_tiled R = 8.
+// src/repro/kernels/l2dist/l2dist.py.
 //
 // Bound on the card: bytes.  Every output reads one base row of d floats
 // (512 B at d = 128) from a random place in device memory, 2 flops a byte.
-// The design keeps each row read to whole coalesced transactions: a warp's
-// lanes read consecutive float4s of the row (one float4 a lane at d = 128),
-// the query line sits in shared memory, and a shuffle tree sums the lanes.
-// A ragged d (not a multiple of 4, or a misaligned base) takes the scalar
-// path with the same lane-strided layout; base is never padded.
+// Rows stay whole and coalesced: lanes read consecutive float4s of a row
+// and a shuffle tree sums them; base is never copied or padded.  Two
+// kernels:
+//
+//  * gather_l2_kernel<VEC4> (entry points gather_l2 and gather_l2_blocks):
+//    a block of R warps shares one query line b staged in shared memory,
+//    each warp owns one (b, m) row; float4 loads where d % 4 == 0 and base
+//    is 16-byte aligned, else scalar loads.  gather_l2 launches R = 1;
+//    gather_l2_blocks, gather_l2_tiled's kernel for the shapes the one
+//    below does not take (MIPS's d + 1 = 129, d > 128, a misaligned view),
+//    R = 8.
+//  * gather_l2_rows (gather_l2_tiled at d % 4 == 0, d <= 128 with an
+//    aligned base and query line: the drain's [128, 1], the build's
+//    [1024, 24]): l2_rows.cuh's register kernel.  A warp reads its ids and
+//    its query line at once and then issues all its rows' loads: two round
+//    trips where the block kernel makes three (the line, then the id, then
+//    the row), and no wave of short blocks pays them again.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "l2_rows.cuh"
 
 namespace {
 
@@ -94,10 +106,17 @@ int gather_l2(const float* base, const int32_t* ids, const float* q, float* out,
   return launch(base, ids, q, out, n, B, M, d, 1, (cudaStream_t)stream);
 }
 
-// Eight rows of one query line per block.
-int gather_l2_tiled(const float* base, const int32_t* ids, const float* q, float* out,
-                    int64_t n, int B, int M, int d, void* stream) {
+// gather_l2_tiled's two kernels; the wrapper picks one (l2dist/ops.py).
+// Eight rows of one query line per block: any d, any alignment.
+int gather_l2_blocks(const float* base, const int32_t* ids, const float* q, float* out,
+                     int64_t n, int B, int M, int d, void* stream) {
   return launch(base, ids, q, out, n, B, M, d, 8, (cudaStream_t)stream);
+}
+
+// The register kernel: d % 4 == 0, d <= 128, base and q 16-byte aligned.
+int gather_l2_rows(const float* base, const int32_t* ids, const float* q, float* out,
+                   int64_t n, int B, int M, int d, void* stream) {
+  return l2rows::launch<true>(base, ids, q, d, out, n, B, M, d, (cudaStream_t)stream);
 }
 
 }  // extern "C"

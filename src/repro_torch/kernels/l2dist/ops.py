@@ -4,8 +4,15 @@ the CUDA batched-L2 kernel (``csrc/batched_l2.cu``).
 ``gather_l2_tiled`` replaces ``gather_l2_tiled_pallas`` and ``gather_l2``
 replaces ``gather_l2_pallas`` (``src/repro/kernels/l2dist/l2dist.py``).
 Both compute ``d2[b, m] = Σ_j (base[ids[b, m], j] − q[b, j])²`` with +inf
-at ids < 0.  They differ in how many rows one block of the kernel owns
-(8 or 1); the backend names ``kernel_tiled`` and ``kernel`` select them.
+at ids < 0; the backend names ``kernel_tiled`` and ``kernel`` select them.
+``gather_l2`` launches one row per block.  ``gather_l2_tiled`` launches
+one of two kernels (:func:`tiled_kernel`): at d % 4 == 0, d ≤ 128 and a
+16-byte-aligned base and query line — the drain's [128, 1] and the
+build's [1024, 24] — ``gather_l2_rows`` (a warp reads its ids and query
+line at once, then loads its rows into registers, every load issued
+before any reduction); any other shape (MIPS's ragged d + 1 = 129, a
+misaligned view, d > 128) ``gather_l2_blocks``, eight rows of one line
+per block.
 
 On a CUDA tensor the wrapper launches the kernel on the current stream and
 raises if the launch fails; on a CPU tensor it runs the plain version in
@@ -18,9 +25,13 @@ base is the whole dataset (512 MB at n = 1M, d = 128).
 the difference form.  It is the kept-to-candidate distance of
 ``core.geometry.select_neighbors``, the occlusion test of every builder.
 bf16 inputs are cast to f32 first, as the JAX package's kernel call does.
+It launches the same register kernel, ``batched_l2_rows``, where every
+load can be 16-byte aligned — d % 4 == 0, d ≤ 128, aligned rows and query
+lines and a query stride that is a multiple of 4 — and
+``batched_l2_blocks`` (one row a warp) otherwise (:func:`batched_kernel`).
 
-``LAUNCHES`` counts kernel launches per entry point; only a CUDA launch
-adds to it.
+``LAUNCHES`` counts kernel launches per entry point and ``KERNEL_LAUNCHES``
+per kernel behind it; only a CUDA launch adds to them.
 """
 
 from __future__ import annotations
@@ -33,8 +44,11 @@ from .. import _build
 from . import ref
 
 LAUNCHES = {"gather_l2": 0, "gather_l2_tiled": 0, "batched_l2": 0}
+KERNEL_LAUNCHES = {"gather_l2_blocks": 0, "gather_l2_rows": 0,
+                   "batched_l2_blocks": 0, "batched_l2_rows": 0}
 _MAX_D = 12288          # the query line must fit 48 KB of shared memory
 _MAX_B = 65535          # grid.y
+_VEC_MAX_D = 128        # the register kernel's widest row (csrc/l2_rows.cuh)
 
 
 def _check(base, ids, queries):
@@ -52,6 +66,29 @@ def _check(base, ids, queries):
         raise ValueError("base, ids and queries must be on one device")
 
 
+def _aligned(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0
+
+
+def tiled_kernel(base: torch.Tensor, queries: torch.Tensor) -> str:
+    """The kernel ``gather_l2_tiled`` launches over ``base`` with the
+    (contiguous) ``queries``."""
+    d = base.shape[1]
+    if d % 4 or d > _VEC_MAX_D or not (_aligned(base) and _aligned(queries)):
+        return "gather_l2_blocks"
+    return "gather_l2_rows"
+
+
+def batched_kernel(rows: torch.Tensor, queries: torch.Tensor) -> str:
+    """The kernel ``batched_l2`` launches for the f32 contiguous ``rows``
+    [B, M, d] and ``queries`` [B, d] (unit stride along d)."""
+    d = rows.shape[2]
+    if (d % 4 or d > _VEC_MAX_D or queries.stride(0) % 4
+            or not (_aligned(rows) and _aligned(queries))):
+        return "batched_l2_blocks"
+    return "batched_l2_rows"
+
+
 def _launch(name: str, base, ids, queries):
     if not base.is_contiguous():
         raise ValueError("base must be contiguous (it is never copied)")
@@ -62,15 +99,18 @@ def _launch(name: str, base, ids, queries):
     ids = ids.contiguous()
     queries = queries.contiguous()
     out = torch.empty((B, M), dtype=torch.float32, device=base.device)
-    fn = getattr(_build.load("gather_l2"), name)
+    kernel = name if name == "gather_l2" else tiled_kernel(base, queries)
+    fn = getattr(_build.load("gather_l2"), kernel)
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] + \
         [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(base.data_ptr(), ids.data_ptr(), queries.data_ptr(),
             out.data_ptr(), n, B, M, d,
             torch.cuda.current_stream(base.device).cuda_stream)
-    _build.check(rc, name)
+    _build.check(rc, kernel)
     LAUNCHES[name] += 1
+    if kernel != name:
+        KERNEL_LAUNCHES[kernel] += 1
     return out
 
 
@@ -92,8 +132,8 @@ def gather_l2(base: torch.Tensor, ids: torch.Tensor,
 
 def gather_l2_tiled(base: torch.Tensor, ids: torch.Tensor,
                     queries: torch.Tensor) -> torch.Tensor:
-    """Same contract as :func:`gather_l2`; eight rows of one query line per
-    kernel block, the query line shared through shared memory."""
+    """Same contract as :func:`gather_l2`; the kernel is chosen by d and
+    alignment (:func:`tiled_kernel`)."""
     return _dispatch("gather_l2_tiled", base, ids, queries)
 
 
@@ -123,13 +163,15 @@ def batched_l2(rows: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     if queries.stride(1) != 1:
         queries = queries.contiguous()
     out = torch.empty((B, M), dtype=torch.float32, device=rows.device)
-    fn = _build.load("batched_l2").batched_l2
+    kernel = batched_kernel(rows, queries)
+    fn = getattr(_build.load("batched_l2"), kernel)
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + \
         [ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(rows.data_ptr(), queries.data_ptr(), out.data_ptr(), B, M, d,
             queries.stride(0),
             torch.cuda.current_stream(rows.device).cuda_stream)
-    _build.check(rc, "batched_l2")
+    _build.check(rc, kernel)
     LAUNCHES["batched_l2"] += 1
+    KERNEL_LAUNCHES[kernel] += 1
     return out

@@ -47,10 +47,11 @@ from repro_torch.models import common
 from repro_torch.models import transformer as tf
 from repro_torch.serve import generate
 
-L2_SHAPES = [(2, 16, 24), (4, 32, 128), (1, 7, 65)]
+# the build's [block, M] at d = 128 and MIPS's ragged d + 1 = 129, cut in B
+L2_SHAPES = [(2, 16, 24), (4, 32, 128), (1, 7, 65), (8, 24, 128), (2, 24, 129)]
 BITDOT_SHAPES = [(8, 32), (100, 100), (300, 128), (17, 257)]
 ESTIMATE_DIMS = [128, 129, 200]           # W = 4, 5 (one bit in the last), 7
-BATCHED_L2_SHAPES = [(1, 8, 16), (4, 24, 100), (3, 17, 33)]
+BATCHED_L2_SHAPES = [(1, 8, 16), (4, 24, 100), (3, 17, 33), (4, 25, 128)]
 # (B, S, H, KV, causal, window): one row, a ragged tile, bidirectional,
 # GQA, windows inside and across tiles, and S past a 64-row tile at 4,097
 FLASH_CASES = [(1, 1, 2, 1, True, None), (2, 100, 6, 3, True, None),
@@ -186,6 +187,138 @@ def test_batched_l2_kernel_on_card(cuda, B, M, d, dtype):
     wide = torch.randn((B, 3, d), device=cuda, dtype=dtype)
     out = l2ops.batched_l2(rows, wide[:, 1])
     torch.testing.assert_close(out, l2ref.batched_l2_ref(rows, wide[:, 1]),
+                               rtol=1e-5, atol=1e-4)
+
+
+# the edges of gather_l2_tiled's and batched_l2's kernels: M of one row,
+# of the build's 24 and 25 (odd: a warp's last group is one row), and 33;
+# B of one line, a few, and the build's block of 1024
+EDGE_M = [1, 24, 25, 33]
+EDGE_B = [1, 3, 1024]
+TILED_KERNELS = ["gather_l2_rows", "gather_l2_blocks"]
+
+
+def _gather_edge_inputs(cuda, B, M, d, n=3000, base_off=0, q_off=0, seed=0):
+    """base f32[n, d] and queries f32[B, d] on the card, each a contiguous
+    view ``*_off`` elements into a flat buffer (1: not 16-byte aligned), and
+    ids with slots of -1 and of ids >= n."""
+    rng = np.random.default_rng(seed)
+    flat = torch.from_numpy(rng.normal(size=n * d + base_off).astype(np.float32))
+    base = flat.to(cuda)[base_off:].view(n, d)
+    flat = torch.from_numpy(rng.normal(size=B * d + q_off).astype(np.float32))
+    queries = flat.to(cuda)[q_off:].view(B, d)
+    ids = rng.integers(0, n, (B, M)).astype(np.int32)
+    ids.reshape(-1)[::7] = -1
+    ids.reshape(-1)[3::11] = n + 5
+    return base, torch.from_numpy(ids).to(cuda), queries
+
+
+def _check_gather(base, ids, queries, out):
+    """+inf at ids < 0, NaN at ids >= n, the plain version elsewhere."""
+    n = base.shape[0]
+    assert torch.isinf(out[ids < 0]).all() and (out[ids < 0] > 0).all()
+    assert torch.isnan(out[ids >= n]).all()
+    ok = (ids >= 0) & (ids < n)
+    expect = l2ref.gather_l2_ref(base, torch.where(ok, ids, -1), queries)
+    torch.testing.assert_close(out[ok], expect[ok], rtol=1e-5, atol=1e-4)
+
+
+def _launched(name, kernel, call):
+    """call() → its result, asserting it launched the entry point ``name``
+    and its ``kernel`` once each."""
+    before = (l2ops.LAUNCHES[name], l2ops.KERNEL_LAUNCHES[kernel])
+    out = call()
+    torch.cuda.synchronize()
+    assert (l2ops.LAUNCHES[name], l2ops.KERNEL_LAUNCHES[kernel]) == \
+        (before[0] + 1, before[1] + 1)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", TILED_KERNELS)
+@pytest.mark.parametrize("B", EDGE_B)
+@pytest.mark.parametrize("M", EDGE_M)
+def test_gather_l2_tiled_kernels_on_card(cuda, monkeypatch, kernel, B, M):
+    """Each of gather_l2_tiled's kernels, forced, at every edge shape."""
+    base, ids, queries = _gather_edge_inputs(cuda, B, M, 128, seed=B + M)
+    monkeypatch.setattr(l2ops, "tiled_kernel", lambda *a: kernel)
+    out = _launched("gather_l2_tiled", kernel,
+                    lambda: l2ops.gather_l2_tiled(base, ids, queries))
+    _check_gather(base, ids, queries, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [4, 64])
+def test_gather_l2_rows_widths_on_card(cuda, d):
+    """The register kernel at one lane and half a warp a row, as the wrapper
+    picks it."""
+    base, ids, queries = _gather_edge_inputs(cuda, 33, 25, d, n=2000)
+    assert l2ops.tiled_kernel(base, queries) == "gather_l2_rows"
+    out = _launched("gather_l2_tiled", "gather_l2_rows",
+                    lambda: l2ops.gather_l2_tiled(base, ids, queries))
+    _check_gather(base, ids, queries, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,base_off,q_off", [(129, 0, 0), (128, 1, 0),
+                                              (128, 0, 1), (256, 0, 0)])
+def test_gather_l2_tiled_unaligned_rows_on_card(cuda, d, base_off, q_off):
+    """A ragged d, a base or query view off 16-byte alignment, and d past
+    the register row take the block kernel, base read in place."""
+    base, ids, queries = _gather_edge_inputs(cuda, 1024, 24, d, n=2000,
+                                             base_off=base_off, q_off=q_off)
+    ptr = base.data_ptr()
+    out = _launched("gather_l2_tiled", "gather_l2_blocks",
+                    lambda: l2ops.gather_l2_tiled(base, ids, queries))
+    assert base.data_ptr() == ptr
+    _check_gather(base, ids, queries, out)
+
+
+def _batched_edge_inputs(cuda, B, M, d, rows_off=0, q_cols=None, seed=0):
+    """rows f32[B, M, d] (a contiguous view ``rows_off`` elements into a
+    flat buffer) and queries f32[B, d], the trailing columns of a
+    [B, q_cols] tensor, on the card."""
+    rng = np.random.default_rng(seed)
+    flat = rng.normal(size=B * M * d + rows_off).astype(np.float32)
+    rows = torch.from_numpy(flat).to(cuda)[rows_off:].view(B, M, d)
+    q_cols = q_cols or d
+    wide = torch.from_numpy(rng.normal(size=(B, q_cols)).astype(np.float32))
+    return rows, wide.to(cuda)[:, q_cols - d:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["batched_l2_rows", "batched_l2_blocks"])
+@pytest.mark.parametrize("B,M", [(b, m) for b in EDGE_B for m in EDGE_M]
+                         + [(524, 128)])
+def test_batched_l2_kernels_on_card(cuda, monkeypatch, kernel, B, M):
+    """Both of batched_l2's kernels, forced, at every edge shape and the
+    exact build's [524, 128, 128]; query lines strided 3d apart."""
+    rows, queries = _batched_edge_inputs(cuda, B, M, 128, q_cols=384,
+                                         seed=B + M)
+    monkeypatch.setattr(l2ops, "batched_kernel", lambda *a: kernel)
+    out = _launched("batched_l2", kernel,
+                    lambda: l2ops.batched_l2(rows, queries))
+    torch.testing.assert_close(out, l2ref.batched_l2_ref(rows, queries),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,rows_off,q_cols,want", [
+    (128, 0, 384, "batched_l2_rows"),        # a strided, aligned query line
+    (64, 0, 192, "batched_l2_rows"),         # half a warp a row
+    (256, 0, 512, "batched_l2_blocks"),      # past the register row
+    (128, 0, 130, "batched_l2_blocks"),      # query stride 130
+    (128, 1, 128, "batched_l2_blocks"),      # rows off 16-byte alignment
+    (129, 0, 129, "batched_l2_blocks"),      # ragged d
+])
+def test_batched_l2_kernel_choice_on_card(cuda, d, rows_off, q_cols, want):
+    rows, queries = _batched_edge_inputs(cuda, 64, 25, d, rows_off, q_cols)
+    ptr = queries.data_ptr()
+    assert l2ops.batched_kernel(rows, queries) == want
+    out = _launched("batched_l2", want,
+                    lambda: l2ops.batched_l2(rows, queries))
+    assert queries.data_ptr() == ptr
+    torch.testing.assert_close(out, l2ref.batched_l2_ref(rows, queries),
                                rtol=1e-5, atol=1e-4)
 
 

@@ -108,6 +108,45 @@ def test_batched_l2_matches_reference(B, M, d, dtype):
     np.testing.assert_allclose(out.numpy(), expect, rtol=tol[0], atol=tol[1])
 
 
+def _f32(shape, offset=0):
+    """A contiguous float32 view of ``shape`` that starts ``offset``
+    elements into a flat buffer (offset 1: not 16-byte aligned)."""
+    flat = torch.zeros(int(np.prod(shape)) + offset)
+    return flat[offset:].view(*shape)
+
+
+@pytest.mark.parametrize("B,d,base_off,q_off,want", [
+    (128, 128, 0, 0, "gather_l2_rows"),              # the drain, the build
+    (3, 64, 0, 0, "gather_l2_rows"),                 # half a warp a row
+    (1024, 129, 0, 0, "gather_l2_blocks"),           # MIPS's ragged d + 1
+    (1024, 132, 0, 0, "gather_l2_blocks"),           # past the register row
+    (1024, 128, 1, 0, "gather_l2_blocks"),           # base not 16-byte aligned
+    (1024, 128, 0, 1, "gather_l2_blocks"),           # query lines not aligned
+])
+def test_tiled_kernel_choice(B, d, base_off, q_off, want):
+    """gather_l2_tiled's kernel by d and alignment: the register kernel
+    only where every row and query line is 16-byte aligned."""
+    base, queries = _f32((5, d), base_off), _f32((B, d), q_off)
+    assert l2ops.tiled_kernel(base, queries) == want
+
+
+@pytest.mark.parametrize("B,M,d,rows_off,q_cols,want", [
+    (1024, 25, 128, 0, 128, "batched_l2_rows"),      # the build's selector
+    (524, 128, 128, 0, 128, "batched_l2_rows"),      # the exact build's
+    (2, 25, 128, 0, 384, "batched_l2_rows"),         # a column slice, aligned
+    (2, 25, 128, 0, 130, "batched_l2_blocks"),       # query stride 130
+    (2, 25, 128, 1, 128, "batched_l2_blocks"),       # rows not aligned
+    (3, 9, 129, 0, 129, "batched_l2_blocks"),        # MIPS's ragged d + 1
+    (2, 9, 132, 0, 132, "batched_l2_blocks"),        # past the register row
+])
+def test_batched_kernel_choice(B, M, d, rows_off, q_cols, want):
+    """batched_l2's kernel: the register kernel wherever each load can be
+    16-byte aligned (rows, query lines and their stride)."""
+    rows = _f32((B, M, d), rows_off)
+    queries = _f32((B, q_cols))[:, q_cols - d:]       # a trailing column slice
+    assert l2ops.batched_kernel(rows, queries) == want
+
+
 def test_int32_view_is_bit_exact():
     """The uint32 → int32 view keeps every bit, bit 31 included."""
     codes, _ = _codes(64, 128, seed=3)
