@@ -35,8 +35,11 @@ non-zero and prints no result line):
                CUDA events over input sets that hold three times the card's
                L2 (``torch.cdist`` timed beside ``batched_l2`` as its
                library yardstick); ``gather_l2_tiled`` and ``batched_l2``
-               each pick one of two kernels by d and alignment, and the
+               each pick one of three kernels by d and alignment, and the
                kernel picked at a path's shape must launch on that path;
+               where that is the ragged-d register kernel (MIPS's d + 1 =
+               129), the one-row-a-warp block kernel is forced at the same
+               shape, held against the plain version and timed beside it;
 3. serve    — the port's ``launch.serve`` path: ``build_emqg`` on the card
                and ``AnnServer.drain`` over 512 queries; the served
                distances are the exact ones, the ids those of the plain
@@ -63,9 +66,11 @@ non-zero and prints no result line):
                repair), recall@10 of ``error_bounded_search`` printed;
 9. mips     — ``build_mips(quantized=True)`` at n = 50,000 (its launches
                counted as the path ``mips_build``: at d + 1 = 129 the
-               one-row-a-warp ``gather_l2_blocks`` and ``batched_l2_blocks``)
-               and ``mips_search`` for 256 queries: recall@10 against
-               brute-force inner product, ids against the plain path;
+               ragged-d register kernels ``gather_l2_ragged`` and
+               ``batched_l2_ragged``, and never the block kernels)
+               and ``mips_search`` for 256 queries (``gather_l2_ragged`` in
+               its exact tier): recall@10 against brute-force inner
+               product, ids against the plain path;
 10. lm      — smollm-135m at full width in bf16, weights from a seeded
                ``torch.Generator``: the ``flash_attention`` kernel (its bf16
                instance on the tensor cores, ``flash_attn_sm90.cu``) against
@@ -93,11 +98,12 @@ non-zero and prints no result line):
 Every kernel's launch count is set to 0 just before the path that runs it
 and read just after; a kernel that path never launched fails the run.  The
 ``kernels`` line reports each kernel at the shape of the path whose launch
-count it prints (``gather_l2_tiled`` and ``batched_l2`` at two paths each;
-``kernel`` names the kernel behind the entry point, whose launches those
-are).  Each phase prints its seconds.  The line before the last is the
-card; the one before it the ``kernels`` JSON; the last line is the device
-JSON.  It needs one card and exits non-zero without one.
+count it prints (``gather_l2_tiled`` and ``batched_l2`` at three paths
+each; ``kernel`` names the kernel behind the entry point, whose launches
+those are; a ragged-d row also carries ``blocks_ms``, the block kernel's
+time at its shape).  Each phase prints its seconds.  The line before the
+last is the card; the one before it the ``kernels`` JSON; the last line is
+the device JSON.  It needs one card and exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -381,6 +387,13 @@ def kernel_phase(torch, card: str):
         bound_ms, bound_by = bound(nbytes, 3 * valid * d)
         kernel = (l2ops.tiled_kernel(base, queries)
                   if name == "gather_l2_tiled" else name)
+        blocks = {}
+        if kernel == "gather_l2_ragged":
+            launch = blocks_kernel(torch, "gather_l2")
+            blocks = blocks_beside(
+                torch, out, expect, ok,
+                lambda s: launch(base, ids[s], queries),
+                sets, f"gather_l2_blocks [{B},{M}] d={d}")
         rows[(name, path)] = dict(
             name=name, kernel=kernel, route="cuda",
             source="src/repro_torch/kernels/csrc/gather_l2.cu",
@@ -388,7 +401,7 @@ def kernel_phase(torch, card: str):
             shape=f"ids[{B},{M}] base[{n},{d}]", max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, timed_sets=sets, timed_mb=footprint / 1e6,
-            call_us=call[0], plain_call_us=call[1])
+            call_us=call[0], plain_call_us=call[1], **blocks)
         del ids
     del base, bases
     torch.cuda.empty_cache()
@@ -440,8 +453,67 @@ def kernel_phase(torch, card: str):
               f"{r['bound_ms'] / r['ms']:.3f} of the bound; library_ms "
               f"{'none' if lib is None else f'{lib:.5f}'}; host µs a call "
               f"{r['call_us']:.1f} (plain {r['plain_call_us']:.1f}); "
-              f"{r['timed_sets']} sets, {r['timed_mb']:.1f} MB ({card})")
+              f"{r['timed_sets']} sets, {r['timed_mb']:.1f} MB"
+              + (f"; block kernel forced: ms {r['blocks_ms']:.5f} "
+                 f"({r['blocks_ms'] / r['ms']:.3f}× this one's), "
+                 f"err {r['blocks_err']:.3g}, bitwise equal to this one "
+                 f"{r['blocks_bitwise']}" if "blocks_ms" in r else "")
+              + f" ({card})")
     return rows
+
+
+def blocks_kernel(torch, source: str):
+    """``launch(*inputs) → out``: the one-row-a-warp kernel of ``source``
+    (``gather_l2`` or ``batched_l2``), ``<source>_blocks``, called through
+    its C entry point as ``l2dist/ops.py`` calls the kernel it picks, with
+    gather_l2_tiled's (base, ids, queries) or batched_l2's (rows, queries);
+    raises if the launch fails.  It is not counted: the wrapper picks
+    another kernel at the shapes where it is timed."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = getattr(_build.load(source), f"{source}_blocks")
+    gather = source == "gather_l2"
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] if gather else
+                   [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_int64, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def launch(*inputs):
+        stream = torch.cuda.current_stream().cuda_stream
+        if gather:
+            base, ids, queries = inputs
+            out = torch.empty(ids.shape, device=ids.device)
+            rc = fn(base.data_ptr(), ids.data_ptr(), queries.data_ptr(),
+                    out.data_ptr(), base.shape[0], *ids.shape, base.shape[1],
+                    stream)
+        else:
+            rows, queries = inputs
+            out = torch.empty(rows.shape[:2], device=rows.device)
+            rc = fn(rows.data_ptr(), queries.data_ptr(), out.data_ptr(),
+                    *rows.shape, queries.stride(0), stream)
+        check(rc == 0, f"{source}_blocks failed to launch: cudaError {rc}")
+        return out
+
+    return launch
+
+
+def blocks_beside(torch, out, expect, ok, launch, sets: int,
+                  label: str) -> dict:
+    """The one-row-a-warp block kernel forced at a ragged-d path's shape:
+    held against the plain version (rtol 1e-5, atol 1e-4) and timed over
+    the same input sets as the kernel the wrapper picks (``launch(s)`` runs
+    it on set s, through ``blocks_kernel``, which counts nothing)."""
+    got = launch(0)
+    torch.cuda.synchronize()
+    err = float((got[ok] - expect[ok]).abs().max())
+    check(torch.allclose(got[ok], expect[ok], rtol=1e-5, atol=1e-4),
+          f"{label} disagrees with its plain version: {err}")
+    ms = device_ms(torch, lambda: [launch(s) for s in range(sets)]) / sets
+    return dict(blocks_ms=ms, blocks_err=err,
+                blocks_bitwise=bool(torch.equal(got[ok], out[ok])))
 
 
 def estimate_rows(torch, g, n: int) -> dict:
@@ -523,18 +595,35 @@ def estimate_rows(torch, g, n: int) -> dict:
     return rows
 
 
+def batched_inputs(torch, g, sets: int, B: int, M: int, d: int, path: str):
+    """``sets`` input sets of batched_l2 at a path's shape: tiles f32[sets,
+    B, M, d] and query lines [B, d] (``queries[s]``).  On ``mips_build`` a
+    query line is a column of the candidate tile [B, L, d], L = beam_width,
+    read in place at stride L·d as ``core/geometry.py::select_neighbors``
+    passes it; set s takes column s % L, so the lines start at each 4-byte
+    offset from 16-byte alignment, as the selector's loop over the columns
+    reads them.  The other
+    paths' lines are contiguous: at d = 128 the selector's stride keeps
+    every load 16-byte aligned, so the same kernel runs."""
+    dev = torch.device("cuda")
+    tiles = torch.randn((sets, B, M, d), generator=g, device=dev)
+    if path != "mips_build":
+        return tiles, torch.randn((sets, B, d), generator=g, device=dev)
+    L = BUILD_PARAMS["beam_width"]
+    cand = torch.randn((sets, B, L, d), generator=g, device=dev)
+    return tiles, [cand[s, :, s % L] for s in range(sets)]
+
+
 def batched_l2_rows(torch, g) -> dict:
     """batched_l2 at the shapes of ``batched_cases()``; its library
     yardstick is ``torch.cdist`` (the same work and a square root)."""
     from repro_torch.kernels.l2dist import ops as l2ops
     from repro_torch.kernels.l2dist import ref as l2ref
 
-    dev = torch.device("cuda")
     rows = {}
     for B, M, d, path in batched_cases():
         sets = sets_for(torch, B * M * d * 4)
-        tiles = torch.randn((sets, B, M, d), generator=g, device=dev)
-        queries = torch.randn((sets, B, d), generator=g, device=dev)
+        tiles, queries = batched_inputs(torch, g, sets, B, M, d, path)
         out = l2ops.batched_l2(tiles[0], queries[0])
         torch.cuda.synchronize()
         expect = l2ref.batched_l2_ref(tiles[0], queries[0])
@@ -557,15 +646,22 @@ def batched_l2_rows(torch, g) -> dict:
                                                             queries[0])))
         bound_ms, bound_by = bound(4 * (B * M * d + B * d + B * M),
                                    3 * B * M * d)
+        kernel = l2ops.batched_kernel(tiles[0], queries[0])
+        blocks = {}
+        if kernel == "batched_l2_ragged":
+            launch = blocks_kernel(torch, "batched_l2")
+            blocks = blocks_beside(
+                torch, out, expect, torch.ones_like(out, dtype=torch.bool),
+                lambda s: launch(tiles[s], queries[s]),
+                sets, f"batched_l2_blocks [{B},{M},{d}]")
         rows[("batched_l2", path)] = dict(
-            name="batched_l2", kernel=l2ops.batched_kernel(tiles[0], queries[0]),
-            route="cuda",
+            name="batched_l2", kernel=kernel, route="cuda",
             source="src/repro_torch/kernels/csrc/batched_l2.cu",
             replaces="src/repro/kernels/l2dist/l2dist.py:60", path=path,
             shape=f"rows[{B},{M},{d}]", max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms, timed_sets=sets, timed_mb=footprint / 1e6,
-            call_us=call[0], plain_call_us=call[1])
+            call_us=call[0], plain_call_us=call[1], **blocks)
         del tiles, queries
     torch.cuda.empty_cache()
     return rows
@@ -834,6 +930,14 @@ def mips_phase(torch, card: str, counts: dict) -> None:
     counts["mips"] = kernel_counts()
     check(counts["mips"]["fused_estimate"] > 0,
           "mips_search never launched fused_estimate")
+    # d + 1 = 129: the ragged-d register kernels, never the block kernels
+    for path, ragged in (("mips_build", ("gather_l2_ragged", "batched_l2_ragged")),
+                         ("mips", ("gather_l2_ragged",))):
+        for kernel in ragged:
+            check(counts[path][kernel] > 0, f"{path} never launched {kernel}")
+        for kernel in ("gather_l2_blocks", "batched_l2_blocks"):
+            check(counts[path][kernel] == 0,
+                  f"{path} launched {kernel} {counts[path][kernel]} times")
     share = agree(res.ids, plain.ids)
     check(share >= MIN_AGREE, f"MIPS ids match the plain path on {share:.4f}")
     scores = torch.as_tensor(queries, device="cuda") @ \

@@ -64,7 +64,12 @@ def make_batch_dist_fn(vectors: torch.Tensor, backend: str = "auto"
     Backends (the JAX package's names):
       * ``jnp``          — plain PyTorch gather + reduce, on any device.
       * ``kernel``       — CUDA ``gather_l2`` (one row per block).
-      * ``kernel_tiled`` — CUDA ``gather_l2_tiled`` (eight rows per block).
+      * ``kernel_tiled`` — CUDA ``gather_l2_tiled``, one of three kernels
+                           by d and alignment: a float4 register kernel
+                           that gives a warp 2 rows (d % 4 == 0, d ≤ 128,
+                           16-byte-aligned rows); a scalar one that gives
+                           a warp 4 rows (any other d ≤ 256, e.g. MIPS's
+                           129); a one-row-a-warp block kernel past 256.
       * ``auto``         — ``kernel_tiled`` on a CUDA tensor, ``jnp`` on CPU.
 
     ``vectors`` is used as it is (float32, contiguous): nothing is copied

@@ -15,7 +15,8 @@
 // the occlusion test's near-ties as the plain version does.
 //
 // Bound on the card: bytes.  Every output reads one row of d floats once,
-// 3 flops per 4 bytes.  Two kernels; the wrapper (l2dist/ops.py) picks one:
+// 3 flops per 4 bytes.  Three kernels; the wrapper (l2dist/ops.py::
+// batched_kernel) picks one:
 //
 //  * batched_l2_rows, where every load can be 16-byte aligned (d % 4 == 0,
 //    d <= 128, aligned rows and query lines, a query stride that is a
@@ -23,11 +24,14 @@
 //    one tile, reads its query line into registers beside them and issues
 //    every load before it reduces; small blocks, all of them busy (at
 //    M = 25 no warp of a block idles).
-//  * batched_l2_blocks, for every other shape (a ragged d such as 129, a
-//    wider row, a misaligned pointer or stride): a block of 8 warps shares
-//    one query line in shared memory, each warp owns one (b, m) row, lanes
-//    read consecutive float4s (scalar loads where d or rows is not
-//    aligned), and a shuffle tree sums them.
+//  * batched_l2_ragged, for every other d <= 256 (MIPS's d + 1 = 129, whose
+//    query line is a strided column of the candidate tile; a misaligned
+//    pointer or stride; d = 130-256): the same register design with scalar
+//    columns, lane l reading column l + 32 k of each row.
+//  * batched_l2_blocks, for d > 256: a block of 8 warps shares one query
+//    line in shared memory, each warp owns one (b, m) row, lanes read
+//    consecutive float4s (scalar loads where d or rows is not aligned),
+//    and a shuffle tree sums them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -99,6 +103,14 @@ int batched_l2_rows(const float* rows, const float* q, float* out, int B, int M,
                     int64_t q_stride, void* stream) {
   return l2rows::launch<false>(rows, nullptr, q, q_stride, out, 0, B, M, d,
                                (cudaStream_t)stream);
+}
+
+// The register kernel with scalar columns: d <= 256, any alignment and
+// q_stride.
+int batched_l2_ragged(const float* rows, const float* q, float* out, int B, int M, int d,
+                      int64_t q_stride, void* stream) {
+  return l2rows::launch_ragged<false>(rows, nullptr, q, q_stride, out, 0, B, M, d,
+                                      (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -9,23 +9,27 @@
 //
 // Bound on the card: bytes.  Every output reads one base row of d floats
 // (512 B at d = 128) from a random place in device memory, 2 flops a byte.
-// Rows stay whole and coalesced: lanes read consecutive float4s of a row
-// and a shuffle tree sums them; base is never copied or padded.  Two
-// kernels:
+// Rows stay whole and coalesced and base is never copied or padded.
+// gather_l2 launches one kernel; gather_l2_tiled one of three, which the
+// wrapper picks by d and alignment (l2dist/ops.py::tiled_kernel):
 //
-//  * gather_l2_kernel<VEC4> (entry points gather_l2 and gather_l2_blocks):
-//    a block of R warps shares one query line b staged in shared memory,
-//    each warp owns one (b, m) row; float4 loads where d % 4 == 0 and base
-//    is 16-byte aligned, else scalar loads.  gather_l2 launches R = 1;
-//    gather_l2_blocks, gather_l2_tiled's kernel for the shapes the one
-//    below does not take (MIPS's d + 1 = 129, d > 128, a misaligned view),
-//    R = 8.
-//  * gather_l2_rows (gather_l2_tiled at d % 4 == 0, d <= 128 with an
-//    aligned base and query line: the drain's [128, 1], the build's
-//    [1024, 24]): l2_rows.cuh's register kernel.  A warp reads its ids and
-//    its query line at once and then issues all its rows' loads: two round
-//    trips where the block kernel makes three (the line, then the id, then
-//    the row), and no wave of short blocks pays them again.
+//  * gather_l2_rows (d % 4 == 0, d <= 128, a 16-byte-aligned base and query
+//    line: the drain's [128, 1], the build's [1024, 24]): l2_rows.cuh's
+//    register kernel, one float4 of each row a lane.  A warp reads its ids
+//    and its query line at once and then issues all its rows' loads: two
+//    round trips where the block kernel makes three (the line, then the
+//    id, then the row), and no wave of short blocks pays them again.
+//  * gather_l2_ragged (every other d <= 256: MIPS's d + 1 = 129, a
+//    misaligned view, d = 130-256): the same register design with scalar
+//    columns, lane l reading column l + 32 k of each row.
+//  * gather_l2_blocks (d > 256): gather_l2_kernel below with 8 warps a
+//    block.
+//
+// gather_l2_kernel<VEC4> (entry points gather_l2 and gather_l2_blocks): a
+// block of R warps shares one query line b staged in shared memory, each
+// warp owns one (b, m) row and lanes read consecutive float4s of it (scalar
+// loads where d % 4 != 0 or base is not 16-byte aligned), which a shuffle
+// tree sums.  gather_l2 launches R = 1, gather_l2_blocks R = 8.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -106,7 +110,7 @@ int gather_l2(const float* base, const int32_t* ids, const float* q, float* out,
   return launch(base, ids, q, out, n, B, M, d, 1, (cudaStream_t)stream);
 }
 
-// gather_l2_tiled's two kernels; the wrapper picks one (l2dist/ops.py).
+// gather_l2_tiled's three kernels; the wrapper picks one (l2dist/ops.py).
 // Eight rows of one query line per block: any d, any alignment.
 int gather_l2_blocks(const float* base, const int32_t* ids, const float* q, float* out,
                      int64_t n, int B, int M, int d, void* stream) {
@@ -117,6 +121,13 @@ int gather_l2_blocks(const float* base, const int32_t* ids, const float* q, floa
 int gather_l2_rows(const float* base, const int32_t* ids, const float* q, float* out,
                    int64_t n, int B, int M, int d, void* stream) {
   return l2rows::launch<true>(base, ids, q, d, out, n, B, M, d, (cudaStream_t)stream);
+}
+
+// The register kernel with scalar columns: d <= 256, any alignment.
+int gather_l2_ragged(const float* base, const int32_t* ids, const float* q, float* out,
+                     int64_t n, int B, int M, int d, void* stream) {
+  return l2rows::launch_ragged<true>(base, ids, q, d, out, n, B, M, d,
+                                     (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -6,13 +6,17 @@ replaces ``gather_l2_pallas`` (``src/repro/kernels/l2dist/l2dist.py``).
 Both compute ``d2[b, m] = Σ_j (base[ids[b, m], j] − q[b, j])²`` with +inf
 at ids < 0; the backend names ``kernel_tiled`` and ``kernel`` select them.
 ``gather_l2`` launches one row per block.  ``gather_l2_tiled`` launches
-one of two kernels (:func:`tiled_kernel`): at d % 4 == 0, d ≤ 128 and a
-16-byte-aligned base and query line — the drain's [128, 1] and the
-build's [1024, 24] — ``gather_l2_rows`` (a warp reads its ids and query
-line at once, then loads its rows into registers, every load issued
-before any reduction); any other shape (MIPS's ragged d + 1 = 129, a
-misaligned view, d > 128) ``gather_l2_blocks``, eight rows of one line
-per block.
+one of three kernels (:func:`tiled_kernel`), each a superset of the one
+before in the shapes it takes:
+
+* ``gather_l2_rows`` at d % 4 == 0, d ≤ 128 and a 16-byte-aligned base
+  and query line — the drain's [128, 1] and the build's [1024, 24]: a
+  warp reads its ids and query line at once, then loads its rows into
+  registers, one float4 a lane, every load issued before any reduction;
+* ``gather_l2_ragged`` at any other d ≤ 256 — MIPS's ragged d + 1 = 129,
+  a misaligned view, d = 130–256: the same design with scalar columns,
+  which need only 4-byte alignment;
+* ``gather_l2_blocks`` past d = 256: eight rows of one line per block.
 
 On a CUDA tensor the wrapper launches the kernel on the current stream and
 raises if the launch fails; on a CPU tensor it runs the plain version in
@@ -25,10 +29,12 @@ base is the whole dataset (512 MB at n = 1M, d = 128).
 the difference form.  It is the kept-to-candidate distance of
 ``core.geometry.select_neighbors``, the occlusion test of every builder.
 bf16 inputs are cast to f32 first, as the JAX package's kernel call does.
-It launches the same register kernel, ``batched_l2_rows``, where every
-load can be 16-byte aligned — d % 4 == 0, d ≤ 128, aligned rows and query
-lines and a query stride that is a multiple of 4 — and
-``batched_l2_blocks`` (one row a warp) otherwise (:func:`batched_kernel`).
+It launches the same three kernels by the same rule
+(:func:`batched_kernel`): ``batched_l2_rows`` where every load can be
+16-byte aligned — d % 4 == 0, d ≤ 128, aligned rows and query lines and a
+query stride that is a multiple of 4 — ``batched_l2_ragged`` at any other
+d ≤ 256 (MIPS's query line is a strided column of its candidate tile),
+and ``batched_l2_blocks`` (one row a warp) past that.
 
 ``LAUNCHES`` counts kernel launches per entry point and ``KERNEL_LAUNCHES``
 per kernel behind it; only a CUDA launch adds to them.
@@ -44,11 +50,13 @@ from .. import _build
 from . import ref
 
 LAUNCHES = {"gather_l2": 0, "gather_l2_tiled": 0, "batched_l2": 0}
-KERNEL_LAUNCHES = {"gather_l2_blocks": 0, "gather_l2_rows": 0,
-                   "batched_l2_blocks": 0, "batched_l2_rows": 0}
+# the kernels behind gather_l2_tiled and batched_l2
+KERNEL_LAUNCHES = {f"{entry}_{kind}": 0 for entry in ("gather_l2", "batched_l2")
+                   for kind in ("rows", "ragged", "blocks")}
 _MAX_D = 12288          # the query line must fit 48 KB of shared memory
 _MAX_B = 65535          # grid.y
-_VEC_MAX_D = 128        # the register kernel's widest row (csrc/l2_rows.cuh)
+_VEC_MAX_D = 128        # the float4 register kernel's widest row
+_RAGGED_MAX_D = 256     # the scalar register kernel's (csrc/l2_rows.cuh)
 
 
 def _check(base, ids, queries):
@@ -70,23 +78,25 @@ def _aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0
 
 
+def _kind(d: int, aligned: bool) -> str:
+    if d % 4 == 0 and d <= _VEC_MAX_D and aligned:
+        return "rows"
+    return "ragged" if d <= _RAGGED_MAX_D else "blocks"
+
+
 def tiled_kernel(base: torch.Tensor, queries: torch.Tensor) -> str:
     """The kernel ``gather_l2_tiled`` launches over ``base`` with the
     (contiguous) ``queries``."""
-    d = base.shape[1]
-    if d % 4 or d > _VEC_MAX_D or not (_aligned(base) and _aligned(queries)):
-        return "gather_l2_blocks"
-    return "gather_l2_rows"
+    aligned = _aligned(base) and _aligned(queries)
+    return "gather_l2_" + _kind(base.shape[1], aligned)
 
 
 def batched_kernel(rows: torch.Tensor, queries: torch.Tensor) -> str:
     """The kernel ``batched_l2`` launches for the f32 contiguous ``rows``
     [B, M, d] and ``queries`` [B, d] (unit stride along d)."""
-    d = rows.shape[2]
-    if (d % 4 or d > _VEC_MAX_D or queries.stride(0) % 4
-            or not (_aligned(rows) and _aligned(queries))):
-        return "batched_l2_blocks"
-    return "batched_l2_rows"
+    aligned = (queries.stride(0) % 4 == 0 and _aligned(rows)
+               and _aligned(queries))
+    return "batched_l2_" + _kind(rows.shape[2], aligned)
 
 
 def _launch(name: str, base, ids, queries):

@@ -51,7 +51,8 @@ from repro_torch.serve import generate
 L2_SHAPES = [(2, 16, 24), (4, 32, 128), (1, 7, 65), (8, 24, 128), (2, 24, 129)]
 BITDOT_SHAPES = [(8, 32), (100, 100), (300, 128), (17, 257)]
 ESTIMATE_DIMS = [128, 129, 200]           # W = 4, 5 (one bit in the last), 7
-BATCHED_L2_SHAPES = [(1, 8, 16), (4, 24, 100), (3, 17, 33), (4, 25, 128)]
+BATCHED_L2_SHAPES = [(1, 8, 16), (4, 24, 100), (3, 17, 33), (4, 25, 128),
+                     (4, 25, 129)]
 # (B, S, H, KV, causal, window): one row, a ragged tile, bidirectional,
 # GQA, windows inside and across tiles, and S past a 64-row tile at 4,097
 FLASH_CASES = [(1, 1, 2, 1, True, None), (2, 100, 6, 3, True, None),
@@ -195,7 +196,10 @@ def test_batched_l2_kernel_on_card(cuda, B, M, d, dtype):
 # B of one line, a few, and the build's block of 1024
 EDGE_M = [1, 24, 25, 33]
 EDGE_B = [1, 3, 1024]
-TILED_KERNELS = ["gather_l2_rows", "gather_l2_blocks"]
+TILED_KERNELS = ["gather_l2_rows", "gather_l2_ragged", "gather_l2_blocks"]
+# the ragged-d register kernels' widths: MIPS's d + 1, one column past a
+# lane's fourth, and the widest they take (K = 5, 5, 7, 8 columns a lane)
+RAGGED_D = [129, 130, 200, 256]
 
 
 def _gather_edge_inputs(cuda, B, M, d, n=3000, base_off=0, q_off=0, seed=0):
@@ -248,6 +252,50 @@ def test_gather_l2_tiled_kernels_on_card(cuda, monkeypatch, kernel, B, M):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", RAGGED_D)
+@pytest.mark.parametrize("B", EDGE_B)
+@pytest.mark.parametrize("M", EDGE_M)
+def test_gather_l2_ragged_on_card(cuda, d, B, M):
+    """The ragged-d kernel, as the wrapper picks it, at every edge shape and
+    width; base read in place."""
+    base, ids, queries = _gather_edge_inputs(cuda, B, M, d, seed=B + M + d)
+    assert l2ops.tiled_kernel(base, queries) == "gather_l2_ragged"
+    ptr = base.data_ptr()
+    out = _launched("gather_l2_tiled", "gather_l2_ragged",
+                    lambda: l2ops.gather_l2_tiled(base, ids, queries))
+    assert base.data_ptr() == ptr
+    _check_gather(base, ids, queries, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,base_off,q_off", [(129, 1, 0), (129, 3, 1),
+                                              (128, 1, 3), (256, 2, 1)])
+def test_gather_l2_ragged_misaligned_on_card(cuda, d, base_off, q_off):
+    """Base and query views at every 4-byte offset from 16-byte alignment."""
+    base, ids, queries = _gather_edge_inputs(cuda, 1024, 24, d, n=2000,
+                                             base_off=base_off, q_off=q_off)
+    out = _launched("gather_l2_tiled", "gather_l2_ragged",
+                    lambda: l2ops.gather_l2_tiled(base, ids, queries))
+    _check_gather(base, ids, queries, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("base_off", [0, 1])
+def test_gather_l2_ragged_equals_blocks_bitwise(cuda, monkeypatch, base_off):
+    """At d = 129 the ragged kernel sums each row's terms in the block
+    kernel's order and pairs: the same floats to the bit, NaN and inf
+    slots included."""
+    base, ids, queries = _gather_edge_inputs(cuda, 1024, 24, 129, n=2000,
+                                             base_off=base_off)
+    ragged = _launched("gather_l2_tiled", "gather_l2_ragged",
+                       lambda: l2ops.gather_l2_tiled(base, ids, queries))
+    monkeypatch.setattr(l2ops, "tiled_kernel", lambda *a: "gather_l2_blocks")
+    blocks = _launched("gather_l2_tiled", "gather_l2_blocks",
+                       lambda: l2ops.gather_l2_tiled(base, ids, queries))
+    assert torch.equal(ragged.view(torch.int32), blocks.view(torch.int32))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [4, 64])
 def test_gather_l2_rows_widths_on_card(cuda, d):
     """The register kernel at one lane and half a warp a row, as the wrapper
@@ -260,15 +308,23 @@ def test_gather_l2_rows_widths_on_card(cuda, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,base_off,q_off", [(129, 0, 0), (128, 1, 0),
-                                              (128, 0, 1), (256, 0, 0)])
-def test_gather_l2_tiled_unaligned_rows_on_card(cuda, d, base_off, q_off):
+@pytest.mark.parametrize("d,base_off,q_off,want", [
+    (129, 0, 0, "gather_l2_ragged"),         # MIPS's d + 1
+    (128, 1, 0, "gather_l2_ragged"),         # base off 16-byte alignment
+    (128, 0, 1, "gather_l2_ragged"),         # query lines off it
+    (256, 0, 0, "gather_l2_ragged"),         # the widest scalar row
+    (264, 0, 0, "gather_l2_blocks"),         # past it
+])
+def test_gather_l2_tiled_unaligned_rows_on_card(cuda, d, base_off, q_off,
+                                                want):
     """A ragged d, a base or query view off 16-byte alignment, and d past
-    the register row take the block kernel, base read in place."""
+    the float4 row take the ragged-d kernel, d past 256 the block kernel;
+    base read in place."""
     base, ids, queries = _gather_edge_inputs(cuda, 1024, 24, d, n=2000,
                                              base_off=base_off, q_off=q_off)
+    assert l2ops.tiled_kernel(base, queries) == want
     ptr = base.data_ptr()
-    out = _launched("gather_l2_tiled", "gather_l2_blocks",
+    out = _launched("gather_l2_tiled", want,
                     lambda: l2ops.gather_l2_tiled(base, ids, queries))
     assert base.data_ptr() == ptr
     _check_gather(base, ids, queries, out)
@@ -287,11 +343,12 @@ def _batched_edge_inputs(cuda, B, M, d, rows_off=0, q_cols=None, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["batched_l2_rows", "batched_l2_blocks"])
+@pytest.mark.parametrize("kernel", ["batched_l2_rows", "batched_l2_ragged",
+                                    "batched_l2_blocks"])
 @pytest.mark.parametrize("B,M", [(b, m) for b in EDGE_B for m in EDGE_M]
                          + [(524, 128)])
 def test_batched_l2_kernels_on_card(cuda, monkeypatch, kernel, B, M):
-    """Both of batched_l2's kernels, forced, at every edge shape and the
+    """Each of batched_l2's kernels, forced, at every edge shape and the
     exact build's [524, 128, 128]; query lines strided 3d apart."""
     rows, queries = _batched_edge_inputs(cuda, B, M, 128, q_cols=384,
                                          seed=B + M)
@@ -303,13 +360,80 @@ def test_batched_l2_kernels_on_card(cuda, monkeypatch, kernel, B, M):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", RAGGED_D)
+@pytest.mark.parametrize("B", EDGE_B)
+@pytest.mark.parametrize("M", EDGE_M)
+def test_batched_l2_ragged_on_card(cuda, d, B, M):
+    """The ragged-d kernel, as the wrapper picks it, at every edge shape and
+    width; query lines strided 3d + 1 apart (a column slice, read in
+    place)."""
+    rows, queries = _batched_edge_inputs(cuda, B, M, d, q_cols=3 * d + 1,
+                                         seed=B + M + d)
+    assert l2ops.batched_kernel(rows, queries) == "batched_l2_ragged"
+    ptr = queries.data_ptr()
+    out = _launched("batched_l2", "batched_l2_ragged",
+                    lambda: l2ops.batched_l2(rows, queries))
+    assert queries.data_ptr() == ptr
+    torch.testing.assert_close(out, l2ref.batched_l2_ref(rows, queries),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,rows_off,q_cols", [(129, 1, 129), (129, 3, 130),
+                                               (128, 2, 130), (200, 1, 601)])
+def test_batched_l2_ragged_misaligned_on_card(cuda, d, rows_off, q_cols):
+    """Rows at every 4-byte offset from 16-byte alignment, query strides of
+    130 and 3d + 1."""
+    rows, queries = _batched_edge_inputs(cuda, 1024, 25, d, rows_off, q_cols)
+    out = _launched("batched_l2", "batched_l2_ragged",
+                    lambda: l2ops.batched_l2(rows, queries))
+    torch.testing.assert_close(out, l2ref.batched_l2_ref(rows, queries),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_off,q_cols", [(0, 129), (1, 388)])
+def test_batched_l2_ragged_equals_blocks_bitwise(cuda, monkeypatch, rows_off,
+                                                q_cols):
+    """At d = 129 the ragged kernel's sums are the block kernel's to the
+    bit (the same terms in the same order and pairs)."""
+    rows, queries = _batched_edge_inputs(cuda, 1024, 25, 129, rows_off, q_cols)
+    ragged = _launched("batched_l2", "batched_l2_ragged",
+                       lambda: l2ops.batched_l2(rows, queries))
+    monkeypatch.setattr(l2ops, "batched_kernel",
+                        lambda *a: "batched_l2_blocks")
+    blocks = _launched("batched_l2", "batched_l2_blocks",
+                       lambda: l2ops.batched_l2(rows, queries))
+    assert torch.equal(ragged.view(torch.int32), blocks.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_forcing_a_kernel_that_refuses_the_shape_raises(cuda, monkeypatch):
+    """A kernel launched at a shape it does not take refuses the launch and
+    the wrapper raises: the float4 one at d = 129, the ragged one at
+    d = 264.  Nothing is counted."""
+    rows, queries = _batched_edge_inputs(cuda, 4, 25, 129)
+    monkeypatch.setattr(l2ops, "batched_kernel", lambda *a: "batched_l2_rows")
+    before = dict(l2ops.KERNEL_LAUNCHES)
+    with pytest.raises(RuntimeError):
+        l2ops.batched_l2(rows, queries)
+    base, ids, queries = _gather_edge_inputs(cuda, 4, 24, 264, n=100)
+    monkeypatch.setattr(l2ops, "tiled_kernel", lambda *a: "gather_l2_ragged")
+    with pytest.raises(RuntimeError):
+        l2ops.gather_l2_tiled(base, ids, queries)
+    assert l2ops.KERNEL_LAUNCHES == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d,rows_off,q_cols,want", [
     (128, 0, 384, "batched_l2_rows"),        # a strided, aligned query line
     (64, 0, 192, "batched_l2_rows"),         # half a warp a row
-    (256, 0, 512, "batched_l2_blocks"),      # past the register row
-    (128, 0, 130, "batched_l2_blocks"),      # query stride 130
-    (128, 1, 128, "batched_l2_blocks"),      # rows off 16-byte alignment
-    (129, 0, 129, "batched_l2_blocks"),      # ragged d
+    (256, 0, 512, "batched_l2_ragged"),      # past the float4 row
+    (128, 0, 130, "batched_l2_ragged"),      # query stride 130
+    (128, 1, 128, "batched_l2_ragged"),      # rows off 16-byte alignment
+    (129, 0, 129, "batched_l2_ragged"),      # ragged d
+    (129, 0, 388, "batched_l2_ragged"),      # MIPS's d + 1, stride 3d + 1
+    (264, 0, 264, "batched_l2_blocks"),      # past the scalar row
 ])
 def test_batched_l2_kernel_choice_on_card(cuda, d, rows_off, q_cols, want):
     rows, queries = _batched_edge_inputs(cuda, 64, 25, d, rows_off, q_cols)

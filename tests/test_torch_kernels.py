@@ -34,6 +34,7 @@ from test_torch_cuda import (
     BITDOT_SHAPES,
     ESTIMATE_DIMS,
     L2_SHAPES,
+    RAGGED_D,
     _batched_l2_inputs,
     _codes,
     _estimate_args,
@@ -118,14 +119,20 @@ def _f32(shape, offset=0):
 @pytest.mark.parametrize("B,d,base_off,q_off,want", [
     (128, 128, 0, 0, "gather_l2_rows"),              # the drain, the build
     (3, 64, 0, 0, "gather_l2_rows"),                 # half a warp a row
-    (1024, 129, 0, 0, "gather_l2_blocks"),           # MIPS's ragged d + 1
-    (1024, 132, 0, 0, "gather_l2_blocks"),           # past the register row
-    (1024, 128, 1, 0, "gather_l2_blocks"),           # base not 16-byte aligned
-    (1024, 128, 0, 1, "gather_l2_blocks"),           # query lines not aligned
+    (1024, 129, 0, 0, "gather_l2_ragged"),           # MIPS's ragged d + 1
+    (1024, 132, 0, 0, "gather_l2_ragged"),           # past the float4 row
+    (1024, 128, 1, 0, "gather_l2_ragged"),           # base not 16-byte aligned
+    (1024, 128, 0, 1, "gather_l2_ragged"),           # query lines not aligned
+    (1024, 129, 3, 1, "gather_l2_ragged"),           # both, at d + 1
+    (8, 130, 0, 0, "gather_l2_ragged"),              # one column past 4 a lane
+    (8, 200, 0, 0, "gather_l2_ragged"),
+    (8, 256, 0, 0, "gather_l2_ragged"),              # the widest scalar row
+    (8, 264, 0, 0, "gather_l2_blocks"),              # past it
 ])
 def test_tiled_kernel_choice(B, d, base_off, q_off, want):
-    """gather_l2_tiled's kernel by d and alignment: the register kernel
-    only where every row and query line is 16-byte aligned."""
+    """gather_l2_tiled's kernel by d and alignment: the float4 register
+    kernel only where every row and query line is 16-byte aligned and
+    d % 4 == 0, d <= 128; the ragged-d one for every other d <= 256."""
     base, queries = _f32((5, d), base_off), _f32((B, d), q_off)
     assert l2ops.tiled_kernel(base, queries) == want
 
@@ -134,17 +141,61 @@ def test_tiled_kernel_choice(B, d, base_off, q_off, want):
     (1024, 25, 128, 0, 128, "batched_l2_rows"),      # the build's selector
     (524, 128, 128, 0, 128, "batched_l2_rows"),      # the exact build's
     (2, 25, 128, 0, 384, "batched_l2_rows"),         # a column slice, aligned
-    (2, 25, 128, 0, 130, "batched_l2_blocks"),       # query stride 130
-    (2, 25, 128, 1, 128, "batched_l2_blocks"),       # rows not aligned
-    (3, 9, 129, 0, 129, "batched_l2_blocks"),        # MIPS's ragged d + 1
-    (2, 9, 132, 0, 132, "batched_l2_blocks"),        # past the register row
+    (2, 25, 128, 0, 130, "batched_l2_ragged"),       # query stride 130
+    (2, 25, 128, 1, 128, "batched_l2_ragged"),       # rows not aligned
+    (3, 9, 129, 0, 129, "batched_l2_ragged"),        # MIPS's ragged d + 1
+    (2, 9, 132, 0, 132, "batched_l2_ragged"),        # past the float4 row
+    (1024, 25, 129, 0, 388, "batched_l2_ragged"),    # the MIPS build, 3d + 1
+    (2, 9, 130, 1, 391, "batched_l2_ragged"),        # both off, d = 130
+    (2, 9, 200, 0, 200, "batched_l2_ragged"),
+    (2, 9, 256, 0, 512, "batched_l2_ragged"),        # the widest scalar row
+    (2, 9, 264, 0, 264, "batched_l2_blocks"),        # past it
 ])
 def test_batched_kernel_choice(B, M, d, rows_off, q_cols, want):
-    """batched_l2's kernel: the register kernel wherever each load can be
-    16-byte aligned (rows, query lines and their stride)."""
+    """batched_l2's kernel: the float4 register kernel wherever each load
+    can be 16-byte aligned (rows, query lines and their stride) at d % 4 ==
+    0, d <= 128; the ragged-d one for every other d <= 256."""
     rows = _f32((B, M, d), rows_off)
     queries = _f32((B, q_cols))[:, q_cols - d:]       # a trailing column slice
     assert l2ops.batched_kernel(rows, queries) == want
+
+
+@pytest.mark.parametrize("d", RAGGED_D)
+@pytest.mark.parametrize("name", ["gather_l2_tiled", "batched_l2"])
+def test_ragged_layouts_match_reference(name, d):
+    """The layouts the ragged-d kernels take on the card — d of 129-256,
+    views off 16-byte alignment, query lines 3d + 1 apart — through the
+    port's wrappers and the JAX kernels, on the same values."""
+    rng = np.random.default_rng(d)
+    B, M, n = 3, 9, 40
+    if name == "gather_l2_tiled":
+        base = _f32((n, d), 1)
+        base.copy_(torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)))
+        ids = rng.integers(-1, n, (B, M)).astype(np.int32)
+        ids[0, 0] = -1
+        wide = torch.from_numpy(rng.normal(size=(B, 3 * d + 1)).astype(np.float32))
+        queries = wide[:, 3:3 + d]                   # 3d + 1 apart, 4-byte offset
+        expect = np.asarray(ref_l2ops.gather_l2_tiled(
+            jnp.asarray(base.numpy()), jnp.asarray(ids),
+            jnp.asarray(queries.numpy())))
+        before = dict(l2ops.LAUNCHES)
+        out = l2ops.gather_l2_tiled(base, torch.from_numpy(ids),
+                                    queries.contiguous()).numpy()
+        assert l2ops.LAUNCHES == before
+        assert np.isinf(out[ids < 0]).all() and np.isinf(expect[ids < 0]).all()
+        ok = ids >= 0
+        np.testing.assert_allclose(out[ok], expect[ok], rtol=1e-5, atol=1e-5)
+    else:
+        rows = _f32((B, M, d), 3)
+        rows.copy_(torch.from_numpy(rng.normal(size=(B, M, d)).astype(np.float32)))
+        wide = torch.from_numpy(rng.normal(size=(B, 3 * d + 1)).astype(np.float32))
+        queries = wide[:, 2 * d + 1:]                # 3d + 1 apart
+        expect = np.asarray(ref_l2ops.batched_l2(
+            jnp.asarray(rows.numpy()), jnp.asarray(queries.numpy())))
+        before = dict(l2ops.LAUNCHES)
+        out = l2ops.batched_l2(rows, queries).numpy()
+        assert l2ops.LAUNCHES == before
+        np.testing.assert_allclose(out, expect, rtol=1e-5, atol=1e-4)
 
 
 def test_int32_view_is_bit_exact():

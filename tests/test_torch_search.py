@@ -374,3 +374,30 @@ def test_mips_search_parity_w1(mips_ref, quantized):
     scores = ip_from_l2(queries, t.dists, port.radius)
     want = np.take_along_axis(queries @ items.T, t.ids.numpy(), axis=1)
     np.testing.assert_allclose(scores, want, rtol=1e-3, atol=1e-2)
+
+
+def test_mips_recall_at_scale_is_the_reference_level():
+    """ROADMAP C.7: MIPS recall@10 falls with n, and the fall is the
+    reference's.  The quantized MIPS index of the serve cell's build
+    parameters, built by the JAX package, searched by both packages at the
+    smoke's α = 1.2 and l_max = 256: ids identical, so recall@10 against
+    brute-force inner product is equal."""
+    items = gmm(2000, 32, 48, seed=7)
+    queries = gmm(64, 32, 48, seed=8)
+    bp = RefBuildParams(max_degree=24, beam_width=64, t=32, iters=2,
+                        block=1024)
+    ref = ref_build_mips(items, bp, quantized=True)
+    port = MIPSIndex(index=to_port(ref.index), radius=ref.radius,
+                     dim=ref.dim)
+    r = ref_mips_search(ref, queries, k=10, alpha=1.2, l_max=256)
+    t = mips_search(port, queries, k=10, alpha=1.2, l_max=256,
+                    backend="jnp")
+    np.testing.assert_array_equal(t.ids.numpy(), np.asarray(r.ids))
+    gt = np.argsort(-(queries @ items.T), axis=1, kind="stable")[:, :10]
+
+    def recall(ids):
+        return sum(len(set(a) & set(b)) for a, b in zip(ids.tolist(),
+                                                        gt.tolist())) / gt.size
+
+    assert recall(t.ids.numpy()) == recall(np.asarray(r.ids))
+

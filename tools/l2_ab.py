@@ -8,9 +8,10 @@ versions of their sources, in one process on one card.
 
 Each ``--variant TAG=DIR`` names a directory holding a ``gather_l2.cu`` and
 a ``batched_l2.cu`` (headers they include resolve in DIR first, then in
-``src/repro_torch/kernels/csrc``).  They are built with the port's own
-``nvcc`` flags, all at once, into ``build/ab/``.  Every C entry point of the
-gather and batched signatures that a library exports is timed at the
+``src/repro_torch/kernels/csrc``; a copy of ``l2_rows.cuh`` there with
+another setting times that setting).  They are built with the port's own
+``nvcc`` flags, all at once, into ``build/ab/``.  Every C entry point of
+the gather and batched signatures that a library exports is timed at the
 shapes of ``chip_smoke.py`` (``GATHER_CASES``, ``batched_cases()``) on its
 inputs (a base of 1M rows, input sets over three times the L2, CUDA-graph
 replays: ``chip_smoke.device_ms``), and held against the plain versions
@@ -33,10 +34,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 # the entry points timed where a library exports them: the one-kernel
-# entry points of the earlier sources (gather_l2_tiled, batched_l2) and
-# this tree's two kernels behind each
-GATHER_FNS = ("gather_l2_tiled", "gather_l2_blocks", "gather_l2_rows")
-BATCHED_FNS = ("batched_l2", "batched_l2_blocks", "batched_l2_rows")
+# entry points of the earliest sources (gather_l2_tiled, batched_l2) and
+# the kernels behind each in later ones
+GATHER_FNS = ("gather_l2_tiled", "gather_l2_blocks", "gather_l2_rows",
+              "gather_l2_ragged")
+BATCHED_FNS = ("batched_l2", "batched_l2_blocks", "batched_l2_rows",
+               "batched_l2_ragged")
 
 
 def build(variants: dict) -> dict:
@@ -77,11 +80,23 @@ def entry_points(libs: dict, source: str, names: tuple) -> list:
     return found
 
 
-def takes(fns: list, rows_kernel: str, picks: str) -> list:
-    """The entry points that take this shape: the register kernel only
-    where the wrapper picks it (it refuses a ragged or wide d)."""
+# the kernels behind an entry point, each taking every shape the one
+# before it takes (l2dist/ops.py's choice)
+KINDS = ("rows", "ragged", "blocks")
+
+
+def takes(fns: list, picks: str) -> list:
+    """The entry points that take a shape for which the wrapper picks
+    ``picks``: an earlier source's one-kernel entry point, and each kernel
+    of a kind no earlier in ``KINDS`` than the picked one's (the float4
+    register kernel only where it is picked, the ragged-d one up to d =
+    256)."""
+    def kind(name):
+        return name.rsplit("_", 1)[1]
+
     return [(label, fn) for label, fn in fns
-            if picks == rows_kernel or not label.endswith(":" + rows_kernel)]
+            if kind(label) not in KINDS
+            or KINDS.index(kind(label)) >= KINDS.index(kind(picks))]
 
 
 def kernel_ms(torch, call) -> float:
@@ -152,7 +167,7 @@ def gather_rows(cs, torch, libs, card: str) -> list:
         ok = ids[0] >= 0
         picks = l2ops.tiled_kernel(base, queries)
         calls, errs = {}, {}
-        for label, fn in takes(fns, "gather_l2_rows", picks):
+        for label, fn in takes(fns, picks):
             def call(fn=fn, label=label):
                 stream = torch.cuda.current_stream().cuda_stream
                 for s in range(sets):
@@ -197,18 +212,18 @@ def batched_rows(cs, torch, libs, card: str) -> list:
     rows = []
     for B, M, d, path in cs.batched_cases():
         sets = cs.sets_for(torch, B * M * d * 4)
-        tiles = torch.randn((sets, B, M, d), generator=g, device=dev)
-        queries = torch.randn((sets, B, d), generator=g, device=dev)
+        tiles, queries = cs.batched_inputs(torch, g, sets, B, M, d, path)
         outs = torch.empty((sets, B, M), device=dev)
         expect = l2ref.batched_l2_ref(tiles[0], queries[0])
         picks = l2ops.batched_kernel(tiles[0], queries[0])
         calls, errs = {}, {}
-        for label, fn in takes(fns, "batched_l2_rows", picks):
+        for label, fn in takes(fns, picks):
             def call(fn=fn, label=label):
                 stream = torch.cuda.current_stream().cuda_stream
                 for s in range(sets):
                     rc = fn(tiles[s].data_ptr(), queries[s].data_ptr(),
-                            outs[s].data_ptr(), B, M, d, d, stream)
+                            outs[s].data_ptr(), B, M, d,
+                            queries[s].stride(0), stream)
                     if rc:
                         raise SystemExit(f"{label} failed to launch: {rc}")
             call()
