@@ -40,6 +40,9 @@ non-zero and prints no result line):
                where that is the ragged-d register kernel (MIPS's d + 1 =
                129), the one-row-a-warp block kernel is forced at the same
                shape, held against the plain version and timed beside it;
+               ``bitdot`` and ``fused_estimate`` are also held to the bit to
+               plain versions that sum and round in the kernels' order, and
+               ptxas must report no shared memory and no spills for them;
 3. serve    — the port's ``launch.serve`` path: ``build_emqg`` on the card
                and ``AnnServer.drain`` over 512 queries; the served
                distances are the exact ones, the ids those of the plain
@@ -331,6 +334,41 @@ def popcount32(torch, words):
     return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
 
 
+def rabitq_resources() -> None:
+    """The RaBitQ kernels keep no shared memory and spill nothing: ptxas's
+    report in their build logs, printed."""
+    from repro_torch.kernels import _build
+
+    for name in ("bitdot", "fused_estimate"):
+        lines = [ln.strip() for ln in _build.build_log(name).splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"[ptxas] {name}: " + " | ".join(lines))
+        check(bool(lines) and not any("smem" in ln for ln in lines)
+              and all("0 bytes spill stores, 0 bytes spill loads" in ln
+                      for ln in lines if "spill" in ln),
+              f"{name}: ptxas reports shared memory or spills (or nothing)")
+
+
+def bitdot_inputs(torch, g, B: int, K: int, W: int = 4):
+    """Input sets of the bitdot launch at a path's shape: random code words
+    int32[sets, B, K, W] (``codes[s]``, sets enough to hold three times the
+    L2) and query lines f32[B, 32 W]."""
+    sets = sets_for(torch, B * K * W * 4)
+    codes = torch.randint(-2**31, 2**31 - 1, (sets, B, K, W), generator=g,
+                          device="cuda", dtype=torch.int32)
+    return codes, torch.randn((B, 32 * W), generator=g, device="cuda")
+
+
+def bitdot_bound(torch, codes, q_unit) -> tuple[float, str]:
+    """bitdot's bound for one set of ``bitdot_inputs``: each word, the
+    query line and the output moved once, one add per set bit."""
+    sets, B, K, W = codes.shape
+    shifts = torch.arange(32, device=codes.device, dtype=torch.int32)
+    set_bits = sum(int(((c[..., None] >> shifts) & 1).sum())
+                   for c in codes.split(64)) / sets
+    return bound(4 * (B * K * W + q_unit.numel() + B * K), set_bits)
+
+
 def kernel_phase(torch, card: str):
     from repro_torch.kernels.bitdot import ops as bitdot_ops
     from repro_torch.kernels.bitdot import ref as bitdot_ref
@@ -406,19 +444,19 @@ def kernel_phase(torch, card: str):
     del base, bases
     torch.cuda.empty_cache()
 
-    W = 4
-    shifts = torch.arange(32, device=dev, dtype=torch.int32)
+    rabitq_resources()
     for B, K, path in BITDOT_CASES:
-        sets = sets_for(torch, B * K * W * 4)
-        codes = torch.randint(-2**31, 2**31 - 1, (sets, B, K, W), generator=g,
-                              device=dev, dtype=torch.int32)
-        q_unit = torch.randn((B, 32 * W), generator=g, device=dev)
+        codes, q_unit = bitdot_inputs(torch, g, B, K)
+        sets, W = codes.shape[0], codes.shape[-1]
         out = bitdot_ops.bitdot(codes[0], q_unit)
         torch.cuda.synchronize()
         expect = bitdot_ref.bitdot_ref(codes[0], q_unit)
         err = float((out - expect).abs().max())
         check(torch.allclose(out, expect, rtol=1e-5, atol=1e-4),
               f"bitdot [{B},{K},{W}] disagrees with its plain version: {err}")
+        check(torch.equal(out, bitdot_ref.s_plus_kernel_order(codes[0],
+                                                              q_unit)),
+              f"bitdot [{B},{K},{W}] is not the kernel-order sum to the bit")
         footprint = codes.numel() * 4
         check_misses_l2(torch, f"bitdot [{B},{K},{W}]", footprint)
         ms = device_ms(torch, lambda: [bitdot_ops.bitdot(codes[s], q_unit)
@@ -427,19 +465,15 @@ def kernel_phase(torch, card: str):
             bitdot_ref.bitdot_ref(codes[s], q_unit) for s in range(sets)]) / sets
         call = (host_us(torch, lambda: bitdot_ops.bitdot(codes[0], q_unit)),
                 host_us(torch, lambda: bitdot_ref.bitdot_ref(codes[0], q_unit)))
-        set_bits = sum(int(((c[..., None] >> shifts) & 1).sum())
-                       for c in codes.split(64)) / sets
-        # one add of q[32w + j] for each set bit j of each word w
-        bound_ms, bound_by = bound(4 * (B * K * W + B * 32 * W + B * K),
-                                   set_bits)
+        bound_ms, bound_by = bitdot_bound(torch, codes, q_unit)
         rows[("bitdot", path)] = dict(
             name="bitdot", route="cuda",
             source="src/repro_torch/kernels/csrc/bitdot.cu",
             replaces="src/repro/kernels/bitdot/bitdot.py:45", path=path,
-            shape=f"codes[{B},{K},{W}] q[{B},{32 * W}]", max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None, timed_sets=sets, timed_mb=footprint / 1e6,
-            call_us=call[0], plain_call_us=call[1])
+            shape=f"codes[{B},{K},{W}] q[{B},{q_unit.shape[1]}]",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None, timed_sets=sets,
+            timed_mb=footprint / 1e6, call_us=call[0], plain_call_us=call[1])
         del codes
     torch.cuda.empty_cache()
     rows.update(estimate_rows(torch, g, n))
@@ -516,40 +550,68 @@ def blocks_beside(torch, out, expect, ok, launch, sets: int,
                 blocks_bitwise=bool(torch.equal(got[ok], out[ok])))
 
 
+def estimate_inputs(torch, g, n: int, B: int, K: int, W: int, d: int):
+    """Input sets of the fused_estimate launch at a path's shape:
+    ``ESTIMATE_TABLES`` code tables of n rows with their scalars (one table
+    fits the L2; eight do not), ids int32[sets, B, K] with invalid slots,
+    and a query context; ``args(s)`` is set s's argument list."""
+    dev = torch.device("cuda")
+    last = torch.full((W,), -1, dtype=torch.int64, device=dev)
+    last[-1] = (1 << (d - 32 * (W - 1))) - 1   # pack_bits's zero tail
+    tables = []
+    for _ in range(ESTIMATE_TABLES):
+        codes = (torch.randint(-2**31, 2**31 - 1, (n, W), generator=g,
+                               device=dev, dtype=torch.int32)
+                 .to(torch.int64) & last).to(torch.int32)
+        norms = 0.5 + torch.rand(n, generator=g, device=dev)
+        ip_xo = 0.5 + 0.4 * torch.rand(n, generator=g, device=dev)
+        tables.append((codes, norms, ip_xo))
+    sets = 2 * sets_for(torch, B * K * (4 * W + 8))
+    ids = torch.randint(0, n, (sets, B, K), generator=g, device=dev,
+                        dtype=torch.int32)
+    ids.view(sets, -1)[:, ::7] = -1
+    q_unit = torch.randn((B, d), generator=g, device=dev)
+    q_unit /= torch.linalg.norm(q_unit, dim=1, keepdim=True)
+    ctx = (q_unit, q_unit.sum(-1), 1.0 + torch.rand(B, generator=g,
+                                                    device=dev),
+           torch.tensor(float(d), device=dev).sqrt())
+
+    def args(s):
+        return (*tables[s % ESTIMATE_TABLES], ids[s], *ctx)
+
+    return tables, ids, args
+
+
+def estimate_costs(torch, tables, ids, d: int) -> tuple[int, float, str]:
+    """Of ``estimate_inputs``: the bytes the timed sets read, and one
+    launch's bound and what bounds it: the ids, each distinct row and its
+    two scalars, the query line and its scalars, √d and the output moved
+    once; one add per set bit, then 13 flops of estimator algebra per id."""
+    sets, B, K = ids.shape
+    n, W = tables[0][0].shape
+    table_of = (torch.arange(sets, device=ids.device) % ESTIMATE_TABLES)
+    key = table_of[:, None, None].to(torch.int64) * n + ids
+    valid = ids >= 0
+    footprint = (4 * W + 8) * int(torch.unique(key[valid]).numel())
+    bits = torch.stack([popcount32(torch, t[0]).sum(1) for t in tables])
+    set_bits = int(bits[table_of[:, None, None].expand_as(ids)[valid],
+                        ids[valid].long()].sum()) / sets
+    uniq = unique_per_set(torch, ids)            # rows a launch reads
+    return (footprint, *bound(
+        4 * B * K + uniq * (4 * W + 8) + 4 * B * d + 8 * B + 4 + 4 * B * K,
+        set_bits + 13 * int(valid.sum()) / sets))
+
+
 def estimate_rows(torch, g, n: int) -> dict:
     """fused_estimate at the drain's and the MIPS path's shapes, over
-    ``ESTIMATE_TABLES`` distinct code tables of n rows (one table and its
-    scalars fit the L2; eight do not)."""
+    ``ESTIMATE_TABLES`` distinct code tables of n rows."""
     from repro_torch.kernels.bitdot import ops as bitdot_ops
     from repro_torch.kernels.bitdot import ref as bitdot_ref
 
-    dev = torch.device("cuda")
     rows = {}
     for B, K, W, d, path in ESTIMATE_CASES:
-        last = torch.full((W,), -1, dtype=torch.int64, device=dev)
-        last[-1] = (1 << (d - 32 * (W - 1))) - 1   # pack_bits's zero tail
-        tables = []
-        for _ in range(ESTIMATE_TABLES):
-            codes = (torch.randint(-2**31, 2**31 - 1, (n, W), generator=g,
-                                   device=dev, dtype=torch.int32)
-                     .to(torch.int64) & last).to(torch.int32)
-            norms = 0.5 + torch.rand(n, generator=g, device=dev)
-            ip_xo = 0.5 + 0.4 * torch.rand(n, generator=g, device=dev)
-            tables.append((codes, norms, ip_xo))
-        per_id = 4 * W + 8
-        sets = 2 * sets_for(torch, B * K * per_id)
-        ids = torch.randint(0, n, (sets, B, K), generator=g, device=dev,
-                            dtype=torch.int32)
-        ids.view(sets, -1)[:, ::7] = -1
-        q_unit = torch.randn((B, d), generator=g, device=dev)
-        q_unit /= torch.linalg.norm(q_unit, dim=1, keepdim=True)
-        ctx = (q_unit, q_unit.sum(-1), 1.0 + torch.rand(B, generator=g,
-                                                        device=dev),
-               torch.tensor(float(d), device=dev).sqrt())
-
-        def args(s, tables=tables, ids=ids, ctx=ctx):
-            return (*tables[s % ESTIMATE_TABLES], ids[s], *ctx)
-
+        tables, ids, args = estimate_inputs(torch, g, n, B, K, W, d)
+        sets = ids.shape[0]
         out = bitdot_ops.fused_estimate(*args(0))
         torch.cuda.synchronize()
         expect = bitdot_ref.fused_estimate_ref(*args(0))
@@ -560,11 +622,12 @@ def estimate_rows(torch, g, n: int) -> dict:
         check(torch.allclose(out[ok], expect[ok], rtol=1e-4, atol=1e-3),
               f"fused_estimate [{B},{K}] W={W} disagrees with its plain "
               f"version: {err}")
-        table_of = (torch.arange(sets, device=dev) % ESTIMATE_TABLES)
-        key = table_of[:, None, None].to(torch.int64) * n + ids
-        valid = ids >= 0
-        uniq_all = int(torch.unique(key[valid]).numel())
-        footprint = per_id * uniq_all
+        check(torch.equal(out.view(torch.int32), bitdot_ref.
+                          fused_estimate_kernel_order(*args(0))
+                          .view(torch.int32)),
+              f"fused_estimate [{B},{K}] W={W} is not the kernel-order "
+              f"estimate to the bit")
+        footprint, bound_ms, bound_by = estimate_costs(torch, tables, ids, d)
         check_misses_l2(torch, f"fused_estimate [{B},{K}] W={W}", footprint)
         ms = device_ms(torch, lambda: [bitdot_ops.fused_estimate(*args(s))
                                        for s in range(sets)]) / sets
@@ -573,15 +636,6 @@ def estimate_rows(torch, g, n: int) -> dict:
             reps=5) / sets
         call = (host_us(torch, lambda: bitdot_ops.fused_estimate(*args(0))),
                 host_us(torch, lambda: bitdot_ref.fused_estimate_ref(*args(0))))
-        uniq = unique_per_set(torch, ids)            # rows a launch reads
-        bits = torch.stack([popcount32(torch, t[0]).sum(1) for t in tables])
-        set_bits = int(bits[table_of[:, None, None].expand_as(ids)[valid],
-                            ids[valid].long()].sum()) / sets
-        n_valid = int(valid.sum()) / sets
-        # one add per set bit, then 13 flops of estimator algebra per id
-        bound_ms, bound_by = bound(
-            4 * B * K + uniq * per_id + 4 * B * d + 8 * B + 4 + 4 * B * K,
-            set_bits + 13 * n_valid)
         rows[("fused_estimate", path)] = dict(
             name="fused_estimate", route="cuda",
             source="src/repro_torch/kernels/csrc/fused_estimate.cu",
@@ -590,7 +644,7 @@ def estimate_rows(torch, g, n: int) -> dict:
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, timed_sets=sets, timed_mb=footprint / 1e6,
             call_us=call[0], plain_call_us=call[1])
-        del tables, ids
+        del tables, ids, args
     torch.cuda.empty_cache()
     return rows
 

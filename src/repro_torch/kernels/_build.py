@@ -30,10 +30,11 @@ SOURCES = ("gather_l2", "bitdot", "fused_estimate", "batched_l2",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # flags of one source only: ptxas reports the registers, spills and shared
-# memory of the tensor-core kernel (and any serialised wgmma) and of the
-# L2 kernels into their build logs
+# memory of the tensor-core kernel (and any serialised wgmma), of the L2
+# kernels and of the RaBitQ kernels into their build logs
 EXTRA_FLAGS = {name: ("-Xptxas=-v",)
-               for name in ("flash_attn_sm90", "gather_l2", "batched_l2")}
+               for name in ("flash_attn_sm90", "gather_l2", "batched_l2",
+                            "bitdot", "fused_estimate")}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -9,20 +9,23 @@ S₊ ``f32[B, K]``.  It has the signature ``core.rabitq.estimate_sqdist``
 expects for its ``bitdot_fn`` plug, so ``probing_search(use_kernel=True)``
 makes one launch per hop over the whole batch's ``[B, W·M]`` code rows.
 
-On a CUDA tensor it pads q with zeros to ``32·W`` and launches the kernel;
-on a CPU tensor it runs the plain version in ``ref.py``.  The kernel sums
-in another order than the plain version; they agree to rtol 1e-5 /
-atol 1e-4, the tolerance of the JAX package's kernel test.
-
 ``fused_estimate(codes, norms, ip_xo, ids, q_unit, sum_q, norm_q,
 sqrt_d)`` is the whole RaBitQ estimate gathered by id: the code table
 ``int32[n, W]``, ``norms`` / ``ip_xo`` ``f32[n]``, ids ``int32[B, K]`` and
 the search's batched query context → ``f32[B, K]``, +inf at ids < 0.  It is
 ``core.rabitq.estimate_sqdist``'s default on a CUDA index: one launch per
-hop in place of the gather, the unpack, the product and the algebra.  The
-kernel sums S₊ over set bits where the plain version sums ±1 signs; they
-agree to rtol 1e-4 / atol 1e-3, the JAX package's fused-estimate test
-tolerance.
+hop in place of the gather, the unpack, the product and the algebra.
+
+On a CUDA tensor each launches its kernel; on a CPU tensor each runs its
+plain version in ``ref.py``.  Both kernels take q unpadded (they read it as
+0 past d) and keep no shared memory: a warp owns four code rows and holds
+the query line in registers (``csrc/rabitq_rows.cuh``).  They sum S₊ in
+the order that ``ref.s_plus_kernel_order`` reproduces, and equal it (and
+``ref.fused_estimate_kernel_order``) to the bit.  The plain versions sum
+in other orders: bitdot's agrees to rtol 1e-5 / atol 1e-4, the tolerance of
+the JAX package's kernel test; fused_estimate's sums ±1 signs where the
+kernel sums set bits, and agrees to rtol 1e-4 / atol 1e-3, the JAX
+package's fused-estimate test tolerance.
 
 ``LAUNCHES`` counts kernel launches; only a CUDA launch adds to it.
 """
@@ -32,13 +35,11 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from .. import _build
 from . import ref
 
 LAUNCHES = {"bitdot": 0, "fused_estimate": 0}
-_MAX_W = 384            # the padded query line must fit 48 KB of shared memory
 _MAX_B = 65535          # grid.y
 
 
@@ -58,16 +59,15 @@ def bitdot(codes: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         return ref.bitdot_ref(codes, q)
     if codes.device.type != "cuda":
         raise ValueError(f"no bitdot kernel for device {codes.device}")
-    if W > _MAX_W or B > _MAX_B:
-        raise ValueError(f"W={W} or B={B} beyond what the kernel takes")
-    codes = codes.contiguous()
-    q_pad = F.pad(q, (0, 32 * W - q.shape[1])).contiguous()
+    if B > _MAX_B:
+        raise ValueError(f"B={B} beyond what the kernel takes")
+    codes, q = codes.contiguous(), q.contiguous()
     out = torch.empty((B, K), dtype=torch.float32, device=codes.device)
-    fn = _build.load("bitdot").bitdot
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn = _build.load("bitdot").bitdot_rows
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(codes.data_ptr(), q_pad.data_ptr(), out.data_ptr(), B, K, W,
-            torch.cuda.current_stream(codes.device).cuda_stream)
+    rc = fn(codes.data_ptr(), q.data_ptr(), out.data_ptr(), B, K, W,
+            q.shape[1], torch.cuda.current_stream(codes.device).cuda_stream)
     _build.check(rc, "bitdot")
     LAUNCHES["bitdot"] += 1
     return out
@@ -104,8 +104,8 @@ def fused_estimate(codes: torch.Tensor, norms: torch.Tensor,
                                       norm_q, sqrt_d)
     if codes.device.type != "cuda":
         raise ValueError(f"no fused_estimate kernel for device {codes.device}")
-    if W > _MAX_W or B > _MAX_B:
-        raise ValueError(f"W={W} or B={B} beyond what the kernel takes")
+    if B > _MAX_B:
+        raise ValueError(f"B={B} beyond what the kernel takes")
     if not all(t.is_contiguous() for t in (codes, norms, ip_xo)):
         raise ValueError("codes, norms and ip_xo must be contiguous (they are "
                          "never copied)")

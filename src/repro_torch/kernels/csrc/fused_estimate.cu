@@ -8,8 +8,8 @@
 //   out[b,k] = +inf where ids[b, k] < 0;  NaN where ids[b, k] >= n.
 //
 // codes is the int32 [n, W] code table (the uint32 words of the JAX package,
-// bit for bit), q is f32 [B, d] with d <= 32 W (the rotated unit query), and
-// sqrt_d points at one float on the card.
+// bit for bit), q is f32 [B, d] with d <= 32 W (the rotated unit query; the
+// kernel reads it as 0 past d), and sqrt_d points at one float on the card.
 //
 // Replaces the TPU kernel fused_estimate_pallas in
 // src/repro/kernels/bitdot/bitdot.py, which took code rows that XLA had
@@ -17,74 +17,72 @@
 // it on the matrix unit before the estimator algebra.  Here the kernel
 // gathers by id, as gather_l2.cu does, so one launch replaces the gather,
 // the unpack, the product and the twenty-odd elementwise ops of the plain
-// version.  A block of 8 warps shares one query line b in shared memory
-// (zero past d); each warp owns one id; lane j tests bit j of every word (a
-// broadcast load of the word) and adds q[32 w + j]; a shuffle tree sums the
-// lanes into s, and lane 0 applies the estimate in the plain version's
-// order of operations.
+// version.  A warp sums s for its ids on the row body of rabitq_rows.cuh
+// (each lane reads the id of the row whose words it loads), and the lane
+// that holds a row's s applies the estimate.
 //
-// Bound on the card: bytes.  An id reads 4 W + 8 bytes from random rows of
-// the code table and the two scalar arrays (24 B at d = 128) and does about
-// 32 W / 2 + 12 flops.  At the drain's shape (B = 128, K = 24) the launch
-// itself, not memory, sets the time.
+// Bound on the card: bytes (4 W + 8 bytes from random rows of the code
+// table and the two scalar arrays, 24 B at d = 128), far under the launch:
+// at the drain's [128, 24] a launch moves 0.16 MB.  What sets the time is
+// the launch floor plus two dependent memory trips: the id, the query line
+// and the query's scalars load together; then the id's row, norms[id] and
+// ip_xo[id] load together, before any add.  Invalid ids read row 0 and
+// take +inf or NaN at the end.
 
-#include <cuda_runtime.h>
 #include <math_constants.h>
-#include <stdint.h>
+
+#include "rabitq_rows.cuh"
 
 namespace {
 
-constexpr int kIdsPerBlock = 8;
-
-__global__ void fused_estimate_kernel(const int32_t* __restrict__ codes,
-                                      const float* __restrict__ norms,
-                                      const float* __restrict__ ip_xo,
-                                      const int32_t* __restrict__ ids,
-                                      const float* __restrict__ q,
-                                      const float* __restrict__ sum_q,
-                                      const float* __restrict__ norm_q,
-                                      const float* __restrict__ sqrt_d,
-                                      float* __restrict__ out,
-                                      int64_t n, int K, int W, int d) {
-  extern __shared__ float q_s[];
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
+// N: the words of the rows' last chunk (rabitq::with_last_chunk)
+template <int N>
+__global__ void __launch_bounds__(rabitq::kThreads)
+fused_estimate_kernel(const int32_t* __restrict__ codes,
+                      const float* __restrict__ norms,
+                      const float* __restrict__ ip_xo,
+                      const int32_t* __restrict__ ids,
+                      const float* __restrict__ q,
+                      const float* __restrict__ sum_q,
+                      const float* __restrict__ norm_q,
+                      const float* __restrict__ sqrt_d,
+                      float* __restrict__ out,
+                      int64_t n, int K, int full, int d) {
+  int64_t b;
+  int k0, nr;
+  if (!rabitq::warp_rows(K, b, k0, nr)) return;
   const int lane = threadIdx.x & 31;
-  const int qd = 32 * W;
-
-  for (int j = threadIdx.x; j < qd; j += blockDim.x)
-    q_s[j] = j < d ? q[(int64_t)b * d + j] : 0.f;
-  __syncthreads();
-
-  const int k = blockIdx.x * kIdsPerBlock + warp;
-  if (k >= K) return;
-  const int32_t id = ids[(int64_t)b * K + k];
-  const bool valid = id >= 0 && id < n;
-  float acc = 0.f;
-  if (valid) {
-    const int32_t* row = codes + (int64_t)id * W;
-    for (int w = 0; w < W; ++w) {
-      const uint32_t word = (uint32_t)__ldg(row + w);
-      if ((word >> lane) & 1u) acc += q_s[32 * w + lane];
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane != 0) return;
+  const int W = rabitq::kChunk * full + N;
+  const int32_t id = __ldg(ids + b * K + rabitq::lane_row(k0, nr, lane));
+  const float sq = __ldg(sum_q + b);
+  const float nq = __ldg(norm_q + b);
+  const float sd = __ldg(sqrt_d);
+  float nv, ipx;
+  const float s = rabitq::s_plus<N>(q + b * d, full, d, lane, [&] {
+    const int64_t row = id >= 0 && id < n ? id : 0;
+    nv = __ldg(norms + row);
+    ipx = __ldg(ip_xo + row);
+    return codes + row * W;
+  });
+  const int r = lane / (32 / rabitq::kRows);
+  if (lane % (32 / rabitq::kRows) != 0 || r >= nr) return;
   float v;
   if (id < 0) {
     v = CUDART_INF_F;
-  } else if (!valid) {
+  } else if (id >= n) {
     v = CUDART_NAN_F;
   } else {
-    const float sq = sum_q[b];
-    const float nq = norm_q[b];
-    const float nv = __ldg(norms + id);
-    const float ip_xq = (2.f * acc - sq) / *sqrt_d;
-    const float est_cos = ip_xq / fmaxf(__ldg(ip_xo + id), 1e-6f);
-    const float d2 = nv * nv + nq * nq - 2.f * nv * nq * est_cos;
+    const float ip_xq = (2.f * s - sq) / sd;
+    const float est_cos = ip_xq / fmaxf(ipx, 1e-6f);
+    // nv^2 + nq^2 - 2 nv nq est_cos as the two fused multiply-adds that
+    // nvcc 12.8 makes of that expression (the shared-memory kernel's SASS),
+    // written out so that the plain version (ref.py's
+    // fused_estimate_kernel_order) rounds where this does
+    const float d2 = __fmaf_rn(-2.f * nv * nq, est_cos,
+                               __fmaf_rn(nq, nq, __fmul_rn(nv, nv)));
     v = fmaxf(d2, 0.f);
   }
-  out[(int64_t)b * K + k] = v;
+  out[b * K + k0 + r] = v;
 }
 
 }  // namespace
@@ -96,10 +94,11 @@ extern "C" int fused_estimate(const int32_t* codes, const float* norms,
                               float* out, int64_t n, int B, int K, int W,
                               int d, void* stream) {
   if (B == 0 || K == 0) return 0;
-  dim3 grid((K + kIdsPerBlock - 1) / kIdsPerBlock, B);
-  dim3 block(32 * kIdsPerBlock);
-  size_t smem = sizeof(float) * 32 * (size_t)W;
-  fused_estimate_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      codes, norms, ip_xo, ids, q, sum_q, norm_q, sqrt_d, out, n, K, W, d);
+  rabitq::with_last_chunk(W, [&](auto m) {
+    fused_estimate_kernel<decltype(m)::value>
+        <<<rabitq::grid(B, K), rabitq::kThreads, 0, (cudaStream_t)stream>>>(
+            codes, norms, ip_xo, ids, q, sum_q, norm_q, sqrt_d, out, n, K,
+            (W - 1) / rabitq::kChunk, d);
+  });
   return (int)cudaGetLastError();
 }

@@ -11,7 +11,9 @@ tensors: gather-L2 to rtol 1e-5 / atol 1e-5 (the same float32 squares
 summed in another order), bitdot to rtol 1e-5 / atol 1e-4 (the JAX
 kernel test's tolerance), fused_estimate to rtol 1e-4 / atol 1e-3 (the JAX
 fused-estimate test's tolerance; the kernel sums S₊ over set bits, the
-plain version over ±1 signs), batched_l2 to rtol 1e-5 / atol 1e-4 in f32
+plain version over ±1 signs), and both to the bit against plain versions
+that sum and round in the kernels' order (``ref.s_plus_kernel_order``,
+``ref.fused_estimate_kernel_order``), batched_l2 to rtol 1e-5 / atol 1e-4 in f32
 (and the same on bf16 inputs, which both cast to f32 first).  The engines
 on the card must give the ids of their plain paths on ≥ 99% of queries
 (float sum order can swap a tie).  The flash-attention kernel is held
@@ -49,8 +51,10 @@ from repro_torch.serve import generate
 
 # the build's [block, M] at d = 128 and MIPS's ragged d + 1 = 129, cut in B
 L2_SHAPES = [(2, 16, 24), (4, 32, 128), (1, 7, 65), (8, 24, 128), (2, 24, 129)]
-BITDOT_SHAPES = [(8, 32), (100, 100), (300, 128), (17, 257)]
-ESTIMATE_DIMS = [128, 129, 200]           # W = 4, 5 (one bit in the last), 7
+# W = 1, 4, 4, 9 and 10 (past the kernels' 8-word chunk), d off 32's multiples
+BITDOT_SHAPES = [(9, 16), (8, 32), (100, 100), (300, 128), (17, 257), (40, 300)]
+# W = 1, 4, 5 (one bit in the last), 7, 9 and 10
+ESTIMATE_DIMS = [16, 128, 129, 200, 257, 300]
 BATCHED_L2_SHAPES = [(1, 8, 16), (4, 24, 100), (3, 17, 33), (4, 25, 128),
                      (4, 25, 129)]
 # (B, S, H, KV, causal, window): one row, a ragged tile, bidirectional,
@@ -169,6 +173,28 @@ def test_fused_estimate_kernel_on_card(cuda, d):
     assert torch.isinf(out[ids < 0]).all()
     torch.testing.assert_close(out, bitdot_ref.fused_estimate_ref(*args),
                                rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", ESTIMATE_DIMS)
+def test_rabitq_kernels_sum_in_the_kernel_order(cuda, d):
+    """bitdot (q unpadded, d < 32·W where d is off 32's multiples) and
+    fused_estimate equal their kernel-order plain versions to the bit; +inf
+    at ids < 0 and NaN at ids ≥ n."""
+    codes, q = _codes(96, d, seed=d)
+    c = torch.from_numpy(codes.view(np.int32)).to(cuda).view(4, 24, -1)
+    qs = torch.from_numpy(np.stack([q, -q, 2 * q, q[::-1].copy()])).to(cuda)
+    got = bitdot_ops.bitdot(c, qs)
+    assert torch.equal(got, bitdot_ref.s_plus_kernel_order(c, qs))
+    args = list(_estimate_args(_estimate_inputs(5, 70, d, seed=d), cuda))
+    n = args[0].shape[0]
+    ids = args[3]
+    ids[1, :3] = torch.tensor([n, n + 5, 2**31 - 1])
+    out = bitdot_ops.fused_estimate(*args)
+    expect = bitdot_ref.fused_estimate_kernel_order(*args)
+    assert torch.isinf(out[ids < 0]).all() and torch.isnan(out[ids >= n]).all()
+    ok = (ids >= 0) & (ids < n)
+    assert torch.equal(out[ok].view(torch.int32), expect[ok].view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -94,6 +94,68 @@ def test_fused_estimate_matches_reference(d):
     np.testing.assert_allclose(out, np.stack(expect), rtol=1e-4, atol=1e-3)
 
 
+@pytest.mark.parametrize("m,d", BITDOT_SHAPES)
+def test_kernel_order_sum_matches_reference(m, d):
+    """S₊ summed in the CUDA kernels' order (per lane over ascending words,
+    then the xor butterfly) against the JAX kernel (interpret mode) and the
+    plain product, at the JAX kernel test's tolerance."""
+    codes, q = _codes(m, d, seed=m + d)
+    expect = np.asarray(ref_bitdot(jnp.asarray(codes), jnp.asarray(q)))
+    c = torch.from_numpy(codes.view(np.int32))[None]
+    out = bitdot_ref.s_plus_kernel_order(c, torch.from_numpy(q)[None])
+    np.testing.assert_allclose(out[0].numpy(), expect, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(out, bitdot_ref.bitdot_ref(
+        c, torch.from_numpy(q)[None]), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", ESTIMATE_DIMS)
+def test_fused_estimate_kernel_order_matches_reference(d):
+    """The kernel's order of sums and roundings against the JAX kernel
+    (interpret mode) at its test's tolerance; +inf at ids < 0, NaN at
+    ids ≥ n."""
+    inputs = _estimate_inputs(4, 40, d, seed=d)
+    codes, norms, ip_xo, ids, q, norm_q = inputs
+    expect = [np.asarray(ref_fused_estimate(
+        jnp.asarray(codes[np.maximum(row, 0)]),
+        jnp.asarray(norms[np.maximum(row, 0)]),
+        jnp.asarray(ip_xo[np.maximum(row, 0)]), jnp.asarray(q[b]),
+        jnp.float32(norm_q[b]), d, interpret=True))
+        for b, row in enumerate(ids)]
+    args = list(_estimate_args(inputs, "cpu"))
+    args[3] = args[3].clone()
+    args[3][1, :2] = torch.tensor([len(codes), 2**31 - 1])
+    out = bitdot_ref.fused_estimate_kernel_order(*args).numpy()
+    ok = ids >= 0
+    ok[1, :2] = False
+    assert np.isinf(out[ids < 0]).all() and np.isnan(out[1, :2]).all()
+    np.testing.assert_allclose(out[ok], np.stack(expect)[ok], rtol=1e-4,
+                               atol=1e-3)
+
+
+def test_fma32_rounds_once():
+    """fma32 against exact rational arithmetic: the nearest float32 (ties
+    to even) on random triples, and a float64 sum that lands on a float32
+    tie which the exact value lies past (rounding twice gives the other
+    float)."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(3, 500)).astype(np.float32)
+    x[:, 0] = [1 + 2**-12, 1 + 2**-12, 2**-60]
+    x[:, 1] = [1 + 2**-12, 1 + 2**-12, -2**-60]
+    r = bitdot_ref.fma32(*map(torch.from_numpy, x)).numpy()
+    assert r[0] == np.float32(1 + 2**-11 + 2**-23)
+    assert r[1] == np.float32(1 + 2**-11)
+    for a, b, c, got in zip(*x, r):
+        exact = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+        err = abs(Fraction(float(got)) - exact)
+        for nb in (np.nextafter(got, np.float32(np.inf)),
+                   np.nextafter(got, np.float32(-np.inf))):
+            other = abs(Fraction(float(nb)) - exact)
+            assert err < other or (err == other
+                                   and got.view(np.int32) % 2 == 0)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,M,d", BATCHED_L2_SHAPES)
 def test_batched_l2_matches_reference(B, M, d, dtype):

@@ -1,26 +1,37 @@
 #!/usr/bin/env python3
-"""Time the gather-L2 and batched-L2 kernels of this tree against other
-versions of their sources, in one process on one card.
+"""Time the L2 kernels (gather-L2, batched-L2) and the RaBitQ kernels
+(bitdot, fused_estimate) of this tree against other versions of their
+sources, in one process on one card.
 
-    git show <commit>:src/repro_torch/kernels/csrc/gather_l2.cu > build/ab/old/gather_l2.cu
-    git show <commit>:src/repro_torch/kernels/csrc/batched_l2.cu > build/ab/old/batched_l2.cu
+    OLD=80e9e41; mkdir -p build/ab/old
+    for f in bitdot fused_estimate; do
+      git show $OLD:src/repro_torch/kernels/csrc/$f.cu > build/ab/old/$f.cu; done
     python3 tools/l2_ab.py --variant old=build/ab/old
 
-Each ``--variant TAG=DIR`` names a directory holding a ``gather_l2.cu`` and
-a ``batched_l2.cu`` (headers they include resolve in DIR first, then in
-``src/repro_torch/kernels/csrc``; a copy of ``l2_rows.cuh`` there with
-another setting times that setting).  They are built with the port's own
-``nvcc`` flags, all at once, into ``build/ab/``.  Every C entry point of
-the gather and batched signatures that a library exports is timed at the
-shapes of ``chip_smoke.py`` (``GATHER_CASES``, ``batched_cases()``) on its
-inputs (a base of 1M rows, input sets over three times the L2, CUDA-graph
-replays: ``chip_smoke.device_ms``), and held against the plain versions
-(rtol 1e-5, atol 1e-4).  The kernels of one shape are timed in turns, in
-order and then in reverse (a, b, …, b, a); a row gives both times a launch
-and their mean, and the kernel's own duration from torch.profiler.  A
-first row times the harness's floor, a launch that does nothing.  One JSON
-line per row goes to stdout and to ``build/l2_ab.jsonl``, after the card's
-name and power limit.
+Each ``--variant TAG=DIR`` names a directory holding any of
+``gather_l2.cu``, ``batched_l2.cu``, ``bitdot.cu`` and
+``fused_estimate.cu`` (headers they include resolve in DIR first, then in
+``src/repro_torch/kernels/csrc``; a copy of ``l2_rows.cuh`` or
+``rabitq_rows.cuh`` there with another setting times that setting).  They
+are built with the port's own ``nvcc`` flags, all at once, into
+``build/ab/``.  Every C entry point of the timed signatures that a library
+exports is timed at the shapes of ``chip_smoke.py`` on its inputs:
+gather_l2 at ``GATHER_CASES`` (a base of 1M rows) and batched_l2 at
+``batched_cases()``, both held against the plain versions (rtol 1e-5, atol
+1e-4); bitdot at ``BITDOT_CASES`` (``bitdot_rows`` takes the query line
+as it is, an earlier source's ``bitdot`` padded to 32·W: at these shapes
+the same line) and fused_estimate at ``ESTIMATE_CASES`` (over
+``ESTIMATE_TABLES`` code tables of 1M rows), each held to this tree's
+output to the bit.  Input sets hold over three times the L2 and are
+replayed in CUDA graphs (``chip_smoke.device_ms``).  The kernels of one
+shape are timed in turns, in order and then in reverse (a, b, …, b, a); a
+row gives both times a launch and their mean, and the kernel's own
+duration from torch.profiler.  A first row times the harness's floor, a
+launch that does nothing.  One JSON line per row goes to stdout and to
+``build/l2_ab.jsonl``, after the card's name and power limit; then
+ptxas's report of each library and, from ``cuobjdump -sass``, each RaBitQ
+kernel's barriers and the order of its loads and adds (the listings go to
+``build/ab/<tag>_<source>.sass``).
 """
 
 from __future__ import annotations
@@ -40,6 +51,10 @@ GATHER_FNS = ("gather_l2_tiled", "gather_l2_blocks", "gather_l2_rows",
               "gather_l2_ragged")
 BATCHED_FNS = ("batched_l2", "batched_l2_blocks", "batched_l2_rows",
                "batched_l2_ragged")
+# bitdot's entry points: an earlier source's takes the query line padded to
+# 32·W, this tree's bitdot_rows takes it as it is and d
+BITDOT_FNS = ("bitdot", "bitdot_rows")
+SOURCES = ("gather_l2", "batched_l2", "bitdot", "fused_estimate")
 
 
 def build(variants: dict) -> dict:
@@ -51,15 +66,18 @@ def build(variants: dict) -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     for tag, src_dir in variants.items():
-        for name in ("gather_l2", "batched_l2"):
+        for name in SOURCES:
+            src = Path(src_dir) / f"{name}.cu"
+            if not src.exists():
+                continue
             lib = out_dir / f"{tag}_{name}.so"
             cmd = [_build._nvcc(), *_build._flags(name),
-                   "-I", str(_build.CSRC), "-o", str(lib),
-                   str(Path(src_dir) / f"{name}.cu")]
+                   "-I", str(_build.CSRC), "-o", str(lib), str(src)]
             procs.append((tag, name, lib, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-    libs = {"tree": {n: _build.load(n) for n in ("gather_l2", "batched_l2")}}
+    _build.build_all(SOURCES)
+    libs = {"tree": {n: _build.load(n) for n in SOURCES}}
     for tag, name, lib, proc in procs:
         text, _ = proc.communicate()
         if proc.returncode != 0:
@@ -74,7 +92,7 @@ def entry_points(libs: dict, source: str, names: tuple) -> list:
     found = []
     for tag, by_source in libs.items():
         for name in names:
-            fn = getattr(by_source[source], name, None)
+            fn = getattr(by_source.get(source), name, None)
             if fn is not None:
                 found.append((f"{tag}:{name}", fn))
     return found
@@ -242,6 +260,142 @@ def batched_rows(cs, torch, libs, card: str) -> list:
     return rows
 
 
+def bitdot_ab(cs, torch, libs, card: str) -> list:
+    from repro_torch.kernels.bitdot import ref as bitdot_ref
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    fns = entry_points(libs, "bitdot", BITDOT_FNS)
+    for label, fn in fns:
+        ints = 3 if label.endswith(":bitdot") else 4
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * ints + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    rows = []
+    for B, K, path in cs.BITDOT_CASES:
+        codes, q = cs.bitdot_inputs(torch, g, B, K)
+        sets, W = codes.shape[0], codes.shape[-1]
+        outs = torch.empty((sets, B, K), device="cuda")
+        calls, got = {}, {}
+        for label, fn in fns:
+            d = () if label.endswith(":bitdot") else (q.shape[1],)
+
+            def call(fn=fn, label=label, d=d):
+                stream = torch.cuda.current_stream().cuda_stream
+                for s in range(sets):
+                    rc = fn(codes[s].data_ptr(), q.data_ptr(),
+                            outs[s].data_ptr(), B, K, W, *d, stream)
+                    if rc:
+                        raise SystemExit(f"{label} failed to launch: {rc}")
+            call()
+            torch.cuda.synchronize()
+            got[label] = outs[0].clone()
+            calls[label] = call
+        tree = got["tree:bitdot_rows"]
+        cs.check(torch.equal(tree, bitdot_ref.s_plus_kernel_order(codes[0], q)),
+                 f"tree:bitdot_rows [{B},{K},{W}] is not the kernel-order sum")
+        for label, out in got.items():
+            cs.check(torch.equal(out, tree), f"{label} [{B},{K},{W}] is not "
+                     "this tree's bitdot_rows to the bit")
+        err = float((tree - bitdot_ref.bitdot_ref(codes[0], q)).abs().max())
+        bound_ms, _ = cs.bitdot_bound(torch, codes, q)
+        rows += timed(cs, torch, calls, sets, shape=f"codes[{B},{K},{W}]",
+                      path=path, bound_ms=bound_ms, card=card,
+                      max_abs_err=err, bitwise_equal_to_tree=True)
+        del codes, outs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def estimate_ab(cs, torch, libs, card: str) -> list:
+    from repro_torch.kernels.bitdot import ref as bitdot_ref
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    n = 1_000_000
+    fns = entry_points(libs, "fused_estimate", ("fused_estimate",))
+    for _, fn in fns:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64] + \
+            [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    rows = []
+    for B, K, W, d, path in cs.ESTIMATE_CASES:
+        tables, ids, args = cs.estimate_inputs(torch, g, n, B, K, W, d)
+        sets = ids.shape[0]
+        outs = torch.empty((sets, B, K), device="cuda")
+        calls, got = {}, {}
+        for label, fn in fns:
+            def call(fn=fn, label=label):
+                stream = torch.cuda.current_stream().cuda_stream
+                for s in range(sets):
+                    rc = fn(*(t.data_ptr() for t in args(s)),
+                            outs[s].data_ptr(), n, B, K, W, d, stream)
+                    if rc:
+                        raise SystemExit(f"{label} failed to launch: {rc}")
+            call()
+            torch.cuda.synchronize()
+            got[label] = outs[0].view(torch.int32).clone()
+            calls[label] = call
+        tree = got["tree:fused_estimate"]
+        cs.check(torch.equal(tree, bitdot_ref.fused_estimate_kernel_order(
+            *args(0)).view(torch.int32)), f"tree:fused_estimate [{B},{K}] "
+            f"W={W} is not the kernel-order estimate")
+        for label, out in got.items():
+            cs.check(torch.equal(out, tree), f"{label} [{B},{K}] W={W} is "
+                     "not this tree's fused_estimate to the bit")
+        _, bound_ms, _ = cs.estimate_costs(torch, tables, ids, d)
+        rows += timed(cs, torch, calls, sets,
+                      shape=f"ids[{B},{K}] codes[{n},{W}] d={d}", path=path,
+                      bound_ms=bound_ms, card=card,
+                      bitwise_equal_to_tree=True)
+        del tables, ids, args, outs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sass_report(tag: str, source: str, lib: Path) -> str:
+    """From ``cuobjdump -sass`` of a RaBitQ library: each kernel's
+    barriers; outside its loops (a backward branch and its target bound
+    one), its global loads before its first float add and after it; its
+    loads inside loops; and its shuffles and adds.  The listing goes to
+    ``build/ab/<tag>_<source>.sass``."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120)
+    if sass.returncode != 0:
+        return f"[sass] {tag}_{source}: cuobjdump exit {sass.returncode}"
+    (ROOT / "build" / "ab" / f"{tag}_{source}.sass").write_text(sass.stdout)
+    kernels, ops = {}, None
+    inst = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)"
+                      r"(?:\s+(0x[0-9a-f]+|`\(\.L_x_\d+\)))?")
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            ops = kernels.setdefault(line.split("Function :")[1].strip(), [])
+        elif ops is not None and (m := inst.search(line)):
+            target = m.group(3)
+            ops.append((int(m.group(1), 16), m.group(2).split(".")[0],
+                        int(target, 16) if target and target.startswith("0x")
+                        else None))
+    parts = []
+    for name, ops in kernels.items():
+        loops = [(t, a) for a, op, t in ops
+                 if op == "BRA" and t is not None and t <= a]
+        straight = [op for a, op, _ in ops
+                    if not any(lo <= a <= hi for lo, hi in loops)]
+        first_add = (straight.index("FADD") if "FADD" in straight
+                     else len(straight))
+        names = [op for _, op, _ in ops]
+        parts.append(
+            f"{name}: BAR {names.count('BAR')}; outside loops LDG "
+            f"{straight[:first_add].count('LDG')} before the first FADD, "
+            f"{straight[first_add:].count('LDG')} after it; in loops LDG "
+            f"{names.count('LDG') - straight.count('LDG')}; SHFL "
+            f"{names.count('SHFL')}, FADD {names.count('FADD')}, "
+            f"{len(ops)} instructions")
+    return f"[sass] {tag}_{source}: " + " | ".join(parts)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--variant", action="append", default=[],
@@ -264,19 +418,27 @@ def main(argv=None) -> int:
     with open(out / "l2_ab.jsonl", "w") as f:
         for row in ([floor_row(cs, torch, card)]
                     + gather_rows(cs, torch, libs, card)
-                    + batched_rows(cs, torch, libs, card)):
+                    + batched_rows(cs, torch, libs, card)
+                    + bitdot_ab(cs, torch, libs, card)
+                    + estimate_ab(cs, torch, libs, card)):
             line = json.dumps(row)
             print(line)
             f.write(line + "\n")
     from repro_torch.kernels import _build
 
-    logs = {f"tree_{n}": _build.build_log(n) for n in ("gather_l2", "batched_l2")}
+    logs = {f"tree_{n}": _build.build_log(n) for n in SOURCES}
     logs.update((p.stem, p.read_text())
                 for p in sorted((ROOT / "build" / "ab").glob("*.log")))
     for tag, text in logs.items():
         print(f"[ptxas] {tag}: " + " | ".join(
             ln.strip() for ln in text.splitlines()
             if "registers" in ln or "spill" in ln or "Compiling" in ln))
+    for source in ("bitdot", "fused_estimate"):
+        print(sass_report("tree", source, _build.library_path(source)))
+        for tag in variants:
+            lib = ROOT / "build" / "ab" / f"{tag}_{source}.so"
+            if lib.exists():
+                print(sass_report(tag, source, lib))
     return 0
 
 
