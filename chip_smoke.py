@@ -34,15 +34,18 @@ non-zero and prints no result line):
                benchmark shape [64, 64, 128], on no path), then timed with
                CUDA events over input sets that hold three times the card's
                L2 (``torch.cdist`` timed beside ``batched_l2`` as its
-               library yardstick); ``gather_l2_tiled`` and ``batched_l2``
-               each pick one of three kernels by d and alignment, and the
-               kernel picked at a path's shape must launch on that path;
-               where that is the ragged-d register kernel (MIPS's d + 1 =
-               129), the one-row-a-warp block kernel is forced at the same
-               shape, held against the plain version and timed beside it;
-               ``bitdot`` and ``fused_estimate`` are also held to the bit to
-               plain versions that sum and round in the kernels' order, and
-               ptxas must report no shared memory and no spills for them;
+               library yardstick); ``gather_l2_tiled``, ``gather_l2`` (one
+               row a warp) and ``batched_l2`` each pick one of three kernels
+               by d and alignment, and the kernel picked at a path's shape
+               must launch on that path; where that is a ragged-d register
+               kernel (MIPS's d + 1 = 129) or one of ``gather_l2``'s, the
+               one-row-a-warp block kernel is forced at the same shape, held
+               against the plain version, timed beside it, and must give
+               the same floats to the bit; ``bitdot`` and
+               ``fused_estimate`` are also held to the bit to plain versions
+               that sum and round in the kernels' order; ptxas must report
+               no shared memory, no barrier and no spills for them and for
+               the L2 register kernels;
 3. serve    — the port's ``launch.serve`` path: ``build_emqg`` on the card
                and ``AnnServer.drain`` over 512 queries; the served
                distances are the exact ones, the ids those of the plain
@@ -50,7 +53,9 @@ non-zero and prints no result line):
                card, and recall@10 is printed;
 4. probe    — ``probing_search(use_kernel=True)`` (the bitdot kernel)
    exact      and ``search`` with ``backend="kernel"`` / ``"kernel_tiled"``
-               against their plain paths, on the same index;
+               against their plain paths, on the same index (``"kernel"``
+               must launch ``gather_l2_row1`` and no other kernel behind
+               ``gather_l2``);
 5. ags,     — on the same index, 128 queries, each against its plain path:
    certify,   ``ags_search``; ``search(with_candidates=True)`` and
    filtered   ``theorem4_delta_prime`` (share found, mean δ′); and
@@ -103,10 +108,10 @@ and read just after; a kernel that path never launched fails the run.  The
 ``kernels`` line reports each kernel at the shape of the path whose launch
 count it prints (``gather_l2_tiled`` and ``batched_l2`` at three paths
 each; ``kernel`` names the kernel behind the entry point, whose launches
-those are; a ragged-d row also carries ``blocks_ms``, the block kernel's
-time at its shape).  Each phase prints its seconds.  The line before the
-last is the card; the one before it the ``kernels`` JSON; the last line is
-the device JSON.  It needs one card and exits non-zero without one.
+those are; a ragged-d row and ``gather_l2``'s also carry ``blocks_ms``, the
+block kernel's time at its shape).  Each phase prints its seconds.  The
+line before the last is the card; the one before it the ``kernels`` JSON;
+the last line is the device JSON.  It needs one card and exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -334,19 +339,39 @@ def popcount32(torch, words):
     return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
 
 
-def rabitq_resources() -> None:
-    """The RaBitQ kernels keep no shared memory and spill nothing: ptxas's
-    report in their build logs, printed."""
+def register_kernel_resources() -> None:
+    """The register kernels use no shared memory and no barrier and spill
+    nothing: every kernel of bitdot and fused_estimate (``rabitq_rows.cuh``)
+    and every ``l2_rows.cuh`` kernel of gather_l2 (R rows a warp: 2 and 4
+    for gather_l2_tiled, 1 for gather_l2, which must be there).  ptxas's
+    report of each, from the build logs, printed."""
+    import re
+
     from repro_torch.kernels import _build
 
-    for name in ("bitdot", "fused_estimate"):
-        lines = [ln.strip() for ln in _build.build_log(name).splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"[ptxas] {name}: " + " | ".join(lines))
-        check(bool(lines) and not any("smem" in ln for ln in lines)
-              and all("0 bytes spill stores, 0 bytes spill loads" in ln
-                      for ln in lines if "spill" in ln),
-              f"{name}: ptxas reports shared memory or spills (or nothing)")
+    for source, only in (("bitdot", None), ("fused_estimate", None),
+                         ("gather_l2", "l2rows")):
+        found = []
+        for text in _build.build_log(source).split("Compiling entry function")[1:]:
+            if only and only not in text.split("'")[1]:
+                continue
+            name = re.search(r"\d([a-z_]+_kernel)(?:I(\w+?)EEv)?", text)
+            args = re.findall(r"L[bi](\d+)E", name[2] or "")
+            regs = re.search(r"Used (\d+) registers", text)
+            found.append(f"{name[1]}<{','.join(args)}> "
+                         f"{regs[1] if regs else '?'} registers")
+            check(regs is not None and "used 0 barriers" in text
+                  and "smem" not in text
+                  and "0 bytes spill stores, 0 bytes spill loads" in text,
+                  f"{source} {found[-1]}: ptxas reports a barrier, shared "
+                  "memory or spills")
+        check(bool(found), f"{source}: no register kernel in its build log")
+        if source == "gather_l2":
+            check(any(f.startswith("rows_kernel<1,1>") for f in found)
+                  and any(f.startswith("ragged_kernel<1,1,") for f in found),
+                  "gather_l2's build log has no one-row register kernel")
+        print(f"[ptxas] {source}, no barrier, no shared memory, no spills: "
+              + "; ".join(found))
 
 
 def bitdot_inputs(torch, g, B: int, K: int, W: int = 4):
@@ -423,10 +448,10 @@ def kernel_phase(torch, card: str):
         valid = int((ids >= 0).sum()) / sets
         nbytes = 4 * (B * M + uniq * d + B * d + B * M)
         bound_ms, bound_by = bound(nbytes, 3 * valid * d)
-        kernel = (l2ops.tiled_kernel(base, queries)
-                  if name == "gather_l2_tiled" else name)
+        kernel = (l2ops.tiled_kernel if name == "gather_l2_tiled"
+                  else l2ops.one_row_kernel)(base, queries)
         blocks = {}
-        if kernel == "gather_l2_ragged":
+        if kernel != "gather_l2_rows":
             launch = blocks_kernel(torch, "gather_l2")
             blocks = blocks_beside(
                 torch, out, expect, ok,
@@ -444,7 +469,7 @@ def kernel_phase(torch, card: str):
     del base, bases
     torch.cuda.empty_cache()
 
-    rabitq_resources()
+    register_kernel_resources()
     for B, K, path in BITDOT_CASES:
         codes, q_unit = bitdot_inputs(torch, g, B, K)
         sets, W = codes.shape[0], codes.shape[-1]
@@ -536,18 +561,21 @@ def blocks_kernel(torch, source: str):
 
 def blocks_beside(torch, out, expect, ok, launch, sets: int,
                   label: str) -> dict:
-    """The one-row-a-warp block kernel forced at a ragged-d path's shape:
-    held against the plain version (rtol 1e-5, atol 1e-4) and timed over
-    the same input sets as the kernel the wrapper picks (``launch(s)`` runs
-    it on set s, through ``blocks_kernel``, which counts nothing)."""
+    """The one-row-a-warp block kernel forced at a path's shape, beside a
+    register kernel that reads the same terms in the same lanes (ragged d,
+    or one float4 a lane at d <= 128): held against the plain version
+    (rtol 1e-5, atol 1e-4) and to ``out``, the register kernel's output,
+    to the bit, and timed over the same input sets (``launch(s)`` runs it
+    on set s, through ``blocks_kernel``, which counts nothing)."""
     got = launch(0)
     torch.cuda.synchronize()
     err = float((got[ok] - expect[ok]).abs().max())
     check(torch.allclose(got[ok], expect[ok], rtol=1e-5, atol=1e-4),
           f"{label} disagrees with its plain version: {err}")
+    check(torch.equal(got.view(torch.int32), out.view(torch.int32)),
+          f"{label} and the register kernel differ in a bit")
     ms = device_ms(torch, lambda: [launch(s) for s in range(sets)]) / sets
-    return dict(blocks_ms=ms, blocks_err=err,
-                blocks_bitwise=bool(torch.equal(got[ok], out[ok])))
+    return dict(blocks_ms=ms, blocks_err=err, blocks_bitwise=True)
 
 
 def estimate_inputs(torch, g, n: int, B: int, K: int, W: int, d: int):
@@ -823,6 +851,14 @@ def probe_exact_phase(torch, idx, vq, card: str, counts: dict) -> None:
         counts[f"exact_{backend}"] = kernel_counts()
         check(counts[f"exact_{backend}"][name] > 0,
               f"search(backend={backend!r}) never launched {name}")
+        if backend == "kernel":
+            behind = {k: counts["exact_kernel"][k] for k in
+                      ("gather_l2_row1", "gather_l2_ragged1",
+                       "gather_l2_blocks")}
+            check(behind == {"gather_l2_row1": counts["exact_kernel"][name],
+                             "gather_l2_ragged1": 0, "gather_l2_blocks": 0},
+                  f"search(backend='kernel') launched {behind} behind "
+                  f"{counts['exact_kernel'][name]} gather_l2 calls")
         share = agree(res.ids, ref.ids)
         check(share >= MIN_AGREE,
               f"search backend={backend} ids match jnp on {share:.4f}")

@@ -63,7 +63,11 @@ def make_batch_dist_fn(vectors: torch.Tensor, backend: str = "auto"
 
     Backends (the JAX package's names):
       * ``jnp``          — plain PyTorch gather + reduce, on any device.
-      * ``kernel``       — CUDA ``gather_l2`` (one row per block).
+      * ``kernel``       — CUDA ``gather_l2``, one row a warp, by the same
+                           rule as ``kernel_tiled``: the float4 register
+                           kernel (d % 4 == 0, d ≤ 128, aligned), the
+                           scalar one (any other d ≤ 256), the block
+                           kernel past 256.
       * ``kernel_tiled`` — CUDA ``gather_l2_tiled``, one of three kernels
                            by d and alignment: a float4 register kernel
                            that gives a warp 2 rows (d % 4 == 0, d ≤ 128,

@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels for the ANN distance hot path and the LM's
 attention (``sm_90a``).
 
-    l2dist/  — fused gather + squared L2 (exact tier): ``gather_l2`` and
-               ``gather_l2_tiled``, from ``csrc/gather_l2.cu``; and
+    l2dist/  — fused gather + squared L2 (exact tier): ``gather_l2`` (one
+               row a warp) and ``gather_l2_tiled`` (several), from
+               ``csrc/gather_l2.cu`` on the register row body of
+               ``csrc/l2_rows.cuh``; and
                ``batched_l2`` (row tiles against one query line each: the
                builders' occlusion test), from ``csrc/batched_l2.cu``
     bitdot/  — packed 1-bit RaBitQ S₊ contraction, from ``csrc/bitdot.cu``;

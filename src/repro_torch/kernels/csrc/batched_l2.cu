@@ -101,16 +101,16 @@ int batched_l2_blocks(const float* rows, const float* q, float* out, int B, int 
 // The register kernel: d % 4 == 0, d <= 128, rows, q and q_stride aligned.
 int batched_l2_rows(const float* rows, const float* q, float* out, int B, int M, int d,
                     int64_t q_stride, void* stream) {
-  return l2rows::launch<false>(rows, nullptr, q, q_stride, out, 0, B, M, d,
-                               (cudaStream_t)stream);
+  return l2rows::launch<false, l2rows::kRows>(rows, nullptr, q, q_stride, out, 0, B, M,
+                                              d, (cudaStream_t)stream);
 }
 
 // The register kernel with scalar columns: d <= 256, any alignment and
 // q_stride.
 int batched_l2_ragged(const float* rows, const float* q, float* out, int B, int M, int d,
                       int64_t q_stride, void* stream) {
-  return l2rows::launch_ragged<false>(rows, nullptr, q, q_stride, out, 0, B, M, d,
-                                      (cudaStream_t)stream);
+  return l2rows::launch_ragged<false, l2rows::kRaggedRows>(rows, nullptr, q, q_stride, out,
+                                                           0, B, M, d, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -9,27 +9,32 @@
 //
 // Bound on the card: bytes.  Every output reads one base row of d floats
 // (512 B at d = 128) from a random place in device memory, 2 flops a byte.
-// Rows stay whole and coalesced and base is never copied or padded.
-// gather_l2 launches one kernel; gather_l2_tiled one of three, which the
-// wrapper picks by d and alignment (l2dist/ops.py::tiled_kernel):
+// Rows stay whole and coalesced and base is never copied or padded.  Each
+// entry point launches one of three kernels, which the wrapper picks by d
+// and alignment (l2dist/ops.py::tiled_kernel for gather_l2_tiled,
+// ::one_row_kernel for gather_l2):
 //
-//  * gather_l2_rows (d % 4 == 0, d <= 128, a 16-byte-aligned base and query
-//    line: the drain's [128, 1], the build's [1024, 24]): l2_rows.cuh's
-//    register kernel, one float4 of each row a lane.  A warp reads its ids
-//    and its query line at once and then issues all its rows' loads: two
-//    round trips where the block kernel makes three (the line, then the
-//    id, then the row), and no wave of short blocks pays them again.
-//  * gather_l2_ragged (every other d <= 256: MIPS's d + 1 = 129, a
-//    misaligned view, d = 130-256): the same register design with scalar
-//    columns, lane l reading column l + 32 k of each row.
-//  * gather_l2_blocks (d > 256): gather_l2_kernel below with 8 warps a
-//    block.
+//  * d % 4 == 0, d <= 128, a 16-byte-aligned base and query line (d = 128
+//    on every path): l2_rows.cuh's float4 register kernel, one float4 of
+//    each row a lane -- gather_l2_rows with 2 rows a warp (gather_l2_tiled:
+//    the drain's [128, 1], the build's [1024, 24]) and gather_l2_row1 with
+//    one (gather_l2, whose unit is one (b, m) row: [128, 24] of
+//    backend="kernel"; 4 rows of one line a block, b = blockIdx.y).  A
+//    warp's row loads wait only for its ids: two dependent round trips (the
+//    id, then the row with the query line), no shared memory and no
+//    barrier.
+//  * every other d <= 256 (MIPS's d + 1 = 129, a misaligned view, d =
+//    130-256): the same design with scalar columns, lane l reading column
+//    l + 32 k of each row -- gather_l2_ragged (4 rows a warp) and
+//    gather_l2_ragged1 (one).
+//  * d > 256: gather_l2_blocks, gather_l2_kernel below, for both.
 //
-// gather_l2_kernel<VEC4> (entry points gather_l2 and gather_l2_blocks): a
-// block of R warps shares one query line b staged in shared memory, each
-// warp owns one (b, m) row and lanes read consecutive float4s of it (scalar
-// loads where d % 4 != 0 or base is not 16-byte aligned), which a shuffle
-// tree sums.  gather_l2 launches R = 1, gather_l2_blocks R = 8.
+// gather_l2_kernel<VEC4> (gather_l2_blocks): a block of 8 warps shares one
+// query line b staged in shared memory, each warp owns one (b, m) row and
+// lanes read consecutive float4s of it (scalar loads where d % 4 != 0 or
+// base is not 16-byte aligned), which a shuffle tree sums.  The register
+// kernels' sums are its own to the bit where both read the same terms in
+// the same lanes: one float4 a lane (d <= 128, aligned), or scalar columns.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -86,11 +91,13 @@ __global__ void gather_l2_kernel(const float* __restrict__ base,
   }
 }
 
-int launch(const float* base, const int32_t* ids, const float* q, float* out,
-           int64_t n, int B, int M, int d, int rows_per_block, cudaStream_t stream) {
+// Eight rows of one query line a block: any d up to the shared memory's.
+int launch_blocks(const float* base, const int32_t* ids, const float* q, float* out,
+                  int64_t n, int B, int M, int d, cudaStream_t stream) {
+  constexpr int kBlockRows = 8;
   if (B == 0 || M == 0) return 0;
-  dim3 grid((M + rows_per_block - 1) / rows_per_block, B);
-  dim3 block(32 * rows_per_block);
+  dim3 grid((M + kBlockRows - 1) / kBlockRows, B);
+  dim3 block(32 * kBlockRows);
   size_t smem = sizeof(float) * (size_t)d;
   const bool vec4 = (d % 4 == 0) && (reinterpret_cast<uintptr_t>(base) % 16 == 0);
   if (vec4)
@@ -104,30 +111,39 @@ int launch(const float* base, const int32_t* ids, const float* q, float* out,
 
 extern "C" {
 
-// One (b, m) row per block.
-int gather_l2(const float* base, const int32_t* ids, const float* q, float* out,
-              int64_t n, int B, int M, int d, void* stream) {
-  return launch(base, ids, q, out, n, B, M, d, 1, (cudaStream_t)stream);
-}
-
-// gather_l2_tiled's three kernels; the wrapper picks one (l2dist/ops.py).
+// The kernels behind gather_l2_tiled (R rows a warp) and gather_l2 (one);
+// the wrapper picks one (l2dist/ops.py).
 // Eight rows of one query line per block: any d, any alignment.
 int gather_l2_blocks(const float* base, const int32_t* ids, const float* q, float* out,
                      int64_t n, int B, int M, int d, void* stream) {
-  return launch(base, ids, q, out, n, B, M, d, 8, (cudaStream_t)stream);
+  return launch_blocks(base, ids, q, out, n, B, M, d, (cudaStream_t)stream);
 }
 
 // The register kernel: d % 4 == 0, d <= 128, base and q 16-byte aligned.
 int gather_l2_rows(const float* base, const int32_t* ids, const float* q, float* out,
                    int64_t n, int B, int M, int d, void* stream) {
-  return l2rows::launch<true>(base, ids, q, d, out, n, B, M, d, (cudaStream_t)stream);
+  return l2rows::launch<true, l2rows::kRows>(base, ids, q, d, out, n, B, M, d,
+                                             (cudaStream_t)stream);
 }
 
 // The register kernel with scalar columns: d <= 256, any alignment.
 int gather_l2_ragged(const float* base, const int32_t* ids, const float* q, float* out,
                      int64_t n, int B, int M, int d, void* stream) {
-  return l2rows::launch_ragged<true>(base, ids, q, d, out, n, B, M, d,
-                                     (cudaStream_t)stream);
+  return l2rows::launch_ragged<true, l2rows::kRaggedRows>(base, ids, q, d, out, n, B, M, d,
+                                                          (cudaStream_t)stream);
+}
+
+// gather_l2_rows with one row a warp.
+int gather_l2_row1(const float* base, const int32_t* ids, const float* q, float* out,
+                   int64_t n, int B, int M, int d, void* stream) {
+  return l2rows::launch<true, 1>(base, ids, q, d, out, n, B, M, d, (cudaStream_t)stream);
+}
+
+// gather_l2_ragged with one row a warp.
+int gather_l2_ragged1(const float* base, const int32_t* ids, const float* q, float* out,
+                      int64_t n, int B, int M, int d, void* stream) {
+  return l2rows::launch_ragged<true, 1>(base, ids, q, d, out, n, B, M, d,
+                                        (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 // The register kernels of the squared-L2 distances: gather_l2.cu's
-// gather_l2_rows / gather_l2_ragged (rows gathered by id from base) and
-// batched_l2.cu's batched_l2_rows / batched_l2_ragged (rows of contiguous
-// [M, d] tiles).  All compute
+// gather_l2_rows / gather_l2_ragged and gather_l2_row1 / gather_l2_ragged1
+// (rows gathered by id from base) and batched_l2.cu's batched_l2_rows /
+// batched_l2_ragged (rows of contiguous [M, d] tiles).  All compute
 //
 //   out[b, m] = sum_j (row(b, m)[j] - q[b, j])^2      (difference form)
 //
@@ -9,9 +9,11 @@
 // paths' shapes is latency: the chain of dependent round trips before the
 // rows move, and how many row bytes are in flight while it runs.  So a
 // warp owns R rows of one line b, and
-//  * its lanes read the line's ids (when gathering) and the query line, into
-//    registers, at once: neither waits for the other, and nothing waits at
-//    a __syncthreads();
+//  * its lanes read the line's ids (when gathering) and the query line into
+//    registers, and nothing waits at a __syncthreads(): the rows' loads wait
+//    for the ids alone, two dependent trips in all (ptxas issues the query
+//    line's load beside the rows', after the ids' shuffle: it lands from L2
+//    before rows from device memory);
 //  * every row's loads are issued before any row is reduced, whole and
 //    coalesced, with L1 skipped (ld.global.nc.L1::no_allocate): each row
 //    is read once;
@@ -25,13 +27,16 @@
 // an H100 at every shape of the paths: 512-byte copies keep the copy engine
 // busy, and whole tiles arrive later than a warp's own loads; PERF.md §6.)
 //
-// Two kernels share that design; the wrappers (l2dist/ops.py) pick one:
-//  * rows_kernel, 2 rows a warp, one float4 of each row a lane, with a
+// Two kernels share that design, each templated on the rows a warp owns
+// (R): 2 and 4 for gather_l2_tiled and batched_l2, 1 for gather_l2, whose
+// unit is one (b, m) row (at R = 1 rows_sum is the one-row butterfly).  The
+// wrappers (l2dist/ops.py) pick one:
+//  * rows_kernel, R = 2 (or 1), one float4 of each row a lane, with a
 //    256-byte L2 fetch (ld.global.nc.L1::no_allocate.L2::256B, which took
 //    2-16% off its times on an H100): d % 4 == 0, d <= 128 and
 //    16-byte-aligned rows and query lines (a query stride that is a
 //    multiple of 4);
-//  * ragged_kernel, 4 rows a warp, K = ceil(d / 32) scalar columns of each
+//  * ragged_kernel, R = 4 (or 1), K = ceil(d / 32) scalar columns of each
 //    row a lane (lane l holds column l + 32 k) and no L2 fetch size: any d
 //    up to 256 and any row offset or query stride, since a float needs
 //    only 4-byte alignment.  MIPS's augmented d + 1 = 129 (516-byte rows,
@@ -55,17 +60,23 @@
 namespace l2rows {
 
 constexpr int kThreads = 128;
-constexpr int kRows = 2;                    // rows a warp owns (rows_kernel)
+constexpr int kWarps = kThreads / 32;
+// rows a warp owns in gather_l2_tiled's and batched_l2's launches
+constexpr int kRows = 2;                    // rows_kernel
+constexpr int kRaggedRows = 4;              // ragged_kernel
 constexpr int kMaxD = 128;                  // one float4 a lane a row
-constexpr int kRaggedRows = 4;             // rows a warp owns (ragged_kernel)
 constexpr int kRaggedMaxK = 8;              // scalar columns a lane: d <= 256
 
+// A float4's squared differences, rounded as the block kernels' `d0 * d0 +
+// d1 * d1 + d2 * d2 + d3 * d3` compiles (their SASS): d1² first, then the
+// others fused in.  Written out, since nvcc fused d0² first at one row a
+// warp.
 __device__ __forceinline__ float sq_diff(float4 r, float4 q) {
   const float d0 = r.x - q.x;
   const float d1 = r.y - q.y;
   const float d2 = r.z - q.z;
   const float d3 = r.w - q.w;
-  return d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3;
+  return __fmaf_rn(d3, d3, __fmaf_rn(d2, d2, __fmaf_rn(d0, d0, __fmul_rn(d1, d1))));
 }
 
 // Sums a[r] (r < R, R a power of two up to 16) over the warp's lanes: log2 R
@@ -113,17 +124,27 @@ __device__ __forceinline__ float load_col(const float* p) {
   return v;
 }
 
-// The warp's place: line b, its first row m0 and how many of its R rows
-// exist (nr); false for a warp past the last line.
+// The warp's place (grid_for's grid): line b, its first row m0 and how many
+// of its R rows exist (nr); false for a warp past the last line or row.
+// R = 1 reads b and m0 off a 2-D grid, with no 64-bit division: on an H100
+// the one-row kernel took 2.55 µs at ids [128, 24] this way against 2.71
+// µs on the 1-D grid, where a 32-bit division bought nothing (PERF.md §6).
 template <int R>
 __device__ __forceinline__ bool warp_rows(int B, int M, int64_t& b, int& m0, int& nr) {
-  const int64_t w = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
-  const int groups = (M + R - 1) / R;
-  if (w >= (int64_t)B * groups) return false;
-  b = w / groups;
-  m0 = (int)(w - b * groups) * R;
-  nr = min(R, M - m0);
-  return true;
+  if constexpr (R == 1) {
+    b = blockIdx.y;
+    m0 = blockIdx.x * kWarps + (threadIdx.x >> 5);
+    nr = 1;
+    return m0 < M;
+  } else {
+    const int64_t w = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
+    const int groups = (M + R - 1) / R;
+    if (w >= (int64_t)B * groups) return false;
+    b = w / groups;
+    m0 = (int)(w - b * groups) * R;
+    nr = min(R, M - m0);
+    return true;
+  }
 }
 
 // Row r of the warp: GATHER, src[ids[b, m0 + r]] (ok false, and row 0, for
@@ -153,14 +174,13 @@ __device__ __forceinline__ void store_sums(float sum, int32_t my_id, int lane, i
   if (lane % (32 / R) == 0 && r < nr) out[b * M + m0 + r] = sum;
 }
 
-// GATHER: row (b, m) is src[ids[b, m]], +inf where the id < 0 and NaN
-// where it is >= n.  Otherwise row (b, m) is src[b M + m].
-template <bool GATHER>
+// R rows a warp.  GATHER: row (b, m) is src[ids[b, m]], +inf where the id
+// < 0 and NaN where it is >= n.  Otherwise row (b, m) is src[b M + m].
+template <bool GATHER, int R>
 __global__ void __launch_bounds__(kThreads)
 rows_kernel(const float* __restrict__ src, const int32_t* __restrict__ ids,
             const float* __restrict__ q, int64_t q_stride, float* __restrict__ out,
             int64_t n, int B, int M, int d) {
-  constexpr int R = kRows;
   const int lane = threadIdx.x & 31;
   int64_t b;
   int m0, nr;
@@ -231,37 +251,37 @@ ragged_kernel(const float* __restrict__ src, const int32_t* __restrict__ ids,
   store_sums<GATHER, R>(rows_sum<R>(a, lane), my_id, lane, nr, b, M, m0, n, out);
 }
 
-// Blocks of kThreads for one warp per R rows of each of B lines, or 0 if the
-// grid would be too wide.
-inline int64_t grid_blocks(int B, int M, int R) {
+// The grid of kThreads blocks with one warp per R rows of each of B lines
+// (warp_rows), or one of 0 blocks if it would be too wide: R = 1, rows
+// along x and lines along y; else every line's warps along x.
+inline dim3 grid_for(int B, int M, int R) {
+  if (R == 1) return B > 65535 ? dim3(0) : dim3((M + kWarps - 1) / kWarps, B);
   const int64_t warps = (int64_t)B * ((M + R - 1) / R);
   const int64_t blocks = (warps * 32 + kThreads - 1) / kThreads;
-  return blocks > 0x7fffffffLL ? 0 : blocks;
+  return dim3(blocks > 0x7fffffffLL ? 0 : (unsigned)blocks);
 }
 
-// Launches the float4 kernel for d % 4 == 0, d <= kMaxD; returns
-// cudaGetLastError().
-template <bool GATHER>
+// Launches the float4 kernel, R rows a warp, for d % 4 == 0, d <= kMaxD;
+// returns cudaGetLastError().
+template <bool GATHER, int R>
 int launch(const float* src, const int32_t* ids, const float* q, int64_t q_stride,
            float* out, int64_t n, int B, int M, int d, cudaStream_t stream) {
   if (B == 0 || M == 0) return 0;
-  const int64_t blocks = grid_blocks(B, M, kRows);
-  if (d % 4 != 0 || d > kMaxD || blocks == 0) return (int)cudaErrorInvalidValue;
-  rows_kernel<GATHER><<<(unsigned)blocks, kThreads, 0, stream>>>(src, ids, q, q_stride,
-                                                                 out, n, B, M, d);
+  const dim3 grid = grid_for(B, M, R);
+  if (d % 4 != 0 || d > kMaxD || grid.x == 0) return (int)cudaErrorInvalidValue;
+  rows_kernel<GATHER, R><<<grid, kThreads, 0, stream>>>(src, ids, q, q_stride, out, n, B,
+                                                        M, d);
   return (int)cudaGetLastError();
 }
 
-// Launches the scalar kernel for 0 <= d <= 32 kRaggedMaxK, its K the
-// fewest columns that cover d; returns cudaGetLastError().
-template <bool GATHER>
+// Launches the scalar kernel, R rows a warp, for 0 <= d <= 32 kRaggedMaxK,
+// its K the fewest columns that cover d; returns cudaGetLastError().
+template <bool GATHER, int R>
 int launch_ragged(const float* src, const int32_t* ids, const float* q, int64_t q_stride,
                   float* out, int64_t n, int B, int M, int d, cudaStream_t stream) {
   if (B == 0 || M == 0) return 0;
-  constexpr int R = kRaggedRows;
-  const int64_t blocks = grid_blocks(B, M, R);
-  if (d < 0 || d > 32 * kRaggedMaxK || blocks == 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks);
+  const dim3 grid = grid_for(B, M, R);
+  if (d < 0 || d > 32 * kRaggedMaxK || grid.x == 0) return (int)cudaErrorInvalidValue;
   static_assert(kRaggedMaxK == 8, "one case per K up to kRaggedMaxK");
 #define L2_RAGGED_CASE(K)                                                        \
   case K:                                                                        \

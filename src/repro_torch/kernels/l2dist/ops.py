@@ -5,18 +5,23 @@ the CUDA batched-L2 kernel (``csrc/batched_l2.cu``).
 replaces ``gather_l2_pallas`` (``src/repro/kernels/l2dist/l2dist.py``).
 Both compute ``d2[b, m] = Σ_j (base[ids[b, m], j] − q[b, j])²`` with +inf
 at ids < 0; the backend names ``kernel_tiled`` and ``kernel`` select them.
-``gather_l2`` launches one row per block.  ``gather_l2_tiled`` launches
-one of three kernels (:func:`tiled_kernel`), each a superset of the one
-before in the shapes it takes:
+Each launches one of three kernels by the same rule, each a superset of
+the one before in the shapes it takes; ``gather_l2_tiled`` gives a warp
+several rows (:func:`tiled_kernel`), ``gather_l2`` one (b, m) row, the
+Pallas kernel's unit (:func:`one_row_kernel`):
 
-* ``gather_l2_rows`` at d % 4 == 0, d ≤ 128 and a 16-byte-aligned base
-  and query line — the drain's [128, 1] and the build's [1024, 24]: a
-  warp reads its ids and query line at once, then loads its rows into
-  registers, one float4 a lane, every load issued before any reduction;
-* ``gather_l2_ragged`` at any other d ≤ 256 — MIPS's ragged d + 1 = 129,
-  a misaligned view, d = 130–256: the same design with scalar columns,
-  which need only 4-byte alignment;
-* ``gather_l2_blocks`` past d = 256: eight rows of one line per block.
+* ``gather_l2_rows`` (2 rows a warp) / ``gather_l2_row1`` (one) at d % 4
+  == 0, d ≤ 128 and a 16-byte-aligned base and query line — the drain's
+  [128, 1], the build's [1024, 24], ``backend="kernel"``'s [128, 24]: a
+  warp loads its ids, then its rows and query line into registers, one
+  float4 a lane, every load issued before any reduction; no shared
+  memory, no barrier;
+* ``gather_l2_ragged`` (4 rows a warp) / ``gather_l2_ragged1`` (one) at
+  any other d ≤ 256 — MIPS's ragged d + 1 = 129, a misaligned view,
+  d = 130–256: the same design with scalar columns, which need only
+  4-byte alignment;
+* ``gather_l2_blocks`` past d = 256, for both: eight rows of one line per
+  block, one a warp.
 
 On a CUDA tensor the wrapper launches the kernel on the current stream and
 raises if the launch fails; on a CPU tensor it runs the plain version in
@@ -50,9 +55,10 @@ from .. import _build
 from . import ref
 
 LAUNCHES = {"gather_l2": 0, "gather_l2_tiled": 0, "batched_l2": 0}
-# the kernels behind gather_l2_tiled and batched_l2
+# the kernels behind gather_l2_tiled, gather_l2 and batched_l2
 KERNEL_LAUNCHES = {f"{entry}_{kind}": 0 for entry in ("gather_l2", "batched_l2")
                    for kind in ("rows", "ragged", "blocks")}
+KERNEL_LAUNCHES.update(gather_l2_row1=0, gather_l2_ragged1=0)
 _MAX_D = 12288          # the query line must fit 48 KB of shared memory
 _MAX_B = 65535          # grid.y
 _VEC_MAX_D = 128        # the float4 register kernel's widest row
@@ -91,6 +97,14 @@ def tiled_kernel(base: torch.Tensor, queries: torch.Tensor) -> str:
     return "gather_l2_" + _kind(base.shape[1], aligned)
 
 
+def one_row_kernel(base: torch.Tensor, queries: torch.Tensor) -> str:
+    """The kernel ``gather_l2`` launches over ``base`` with the
+    (contiguous) ``queries``: :func:`tiled_kernel`'s rule, one row a warp."""
+    kind = _kind(base.shape[1], _aligned(base) and _aligned(queries))
+    return "gather_l2_" + {"rows": "row1", "ragged": "ragged1",
+                           "blocks": "blocks"}[kind]
+
+
 def batched_kernel(rows: torch.Tensor, queries: torch.Tensor) -> str:
     """The kernel ``batched_l2`` launches for the f32 contiguous ``rows``
     [B, M, d] and ``queries`` [B, d] (unit stride along d)."""
@@ -109,7 +123,8 @@ def _launch(name: str, base, ids, queries):
     ids = ids.contiguous()
     queries = queries.contiguous()
     out = torch.empty((B, M), dtype=torch.float32, device=base.device)
-    kernel = name if name == "gather_l2" else tiled_kernel(base, queries)
+    kernel = (one_row_kernel if name == "gather_l2" else tiled_kernel)(
+        base, queries)
     fn = getattr(_build.load("gather_l2"), kernel)
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] + \
         [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -119,8 +134,7 @@ def _launch(name: str, base, ids, queries):
             torch.cuda.current_stream(base.device).cuda_stream)
     _build.check(rc, kernel)
     LAUNCHES[name] += 1
-    if kernel != name:
-        KERNEL_LAUNCHES[kernel] += 1
+    KERNEL_LAUNCHES[kernel] += 1
     return out
 
 
@@ -136,7 +150,8 @@ def _dispatch(name, base, ids, queries):
 def gather_l2(base: torch.Tensor, ids: torch.Tensor,
               queries: torch.Tensor) -> torch.Tensor:
     """base f32[n, d], ids int32[B, M] (-1 → +inf), queries f32[B, d] →
-    f32[B, M]; one (b, m) row per kernel block."""
+    f32[B, M]; one (b, m) row a warp, the kernel chosen by d and alignment
+    (:func:`one_row_kernel`)."""
     return _dispatch("gather_l2", base, ids, queries)
 
 

@@ -223,6 +223,7 @@ def test_batched_l2_kernel_on_card(cuda, B, M, d, dtype):
 EDGE_M = [1, 24, 25, 33]
 EDGE_B = [1, 3, 1024]
 TILED_KERNELS = ["gather_l2_rows", "gather_l2_ragged", "gather_l2_blocks"]
+ONE_ROW_KERNELS = ["gather_l2_row1", "gather_l2_ragged1", "gather_l2_blocks"]
 # the ragged-d register kernels' widths: MIPS's d + 1, one column past a
 # lane's fourth, and the widest they take (K = 5, 5, 7, 8 columns a lane)
 RAGGED_D = [129, 130, 200, 256]
@@ -354,6 +355,88 @@ def test_gather_l2_tiled_unaligned_rows_on_card(cuda, d, base_off, q_off,
                     lambda: l2ops.gather_l2_tiled(base, ids, queries))
     assert base.data_ptr() == ptr
     _check_gather(base, ids, queries, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ONE_ROW_KERNELS)
+@pytest.mark.parametrize("B", EDGE_B)
+@pytest.mark.parametrize("M", EDGE_M)
+def test_gather_l2_kernels_on_card(cuda, monkeypatch, kernel, B, M):
+    """Each of gather_l2's one-row kernels, forced, at every edge shape."""
+    base, ids, queries = _gather_edge_inputs(cuda, B, M, 128, seed=B + M)
+    monkeypatch.setattr(l2ops, "one_row_kernel", lambda *a: kernel)
+    out = _launched("gather_l2", kernel,
+                    lambda: l2ops.gather_l2(base, ids, queries))
+    _check_gather(base, ids, queries, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", RAGGED_D)
+@pytest.mark.parametrize("B", EDGE_B)
+@pytest.mark.parametrize("M", EDGE_M)
+def test_gather_l2_ragged1_on_card(cuda, d, B, M):
+    """gather_l2's ragged-d kernel, as the wrapper picks it, at every edge
+    shape and width; base read in place."""
+    base, ids, queries = _gather_edge_inputs(cuda, B, M, d, seed=B + M + d)
+    assert l2ops.one_row_kernel(base, queries) == "gather_l2_ragged1"
+    ptr = base.data_ptr()
+    out = _launched("gather_l2", "gather_l2_ragged1",
+                    lambda: l2ops.gather_l2(base, ids, queries))
+    assert base.data_ptr() == ptr
+    _check_gather(base, ids, queries, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,base_off,q_off,want", [
+    (128, 0, 0, "gather_l2_row1"),           # backend="kernel"'s rows
+    (64, 0, 0, "gather_l2_row1"),            # half a warp a row
+    (4, 0, 0, "gather_l2_row1"),             # one lane a row
+    (129, 0, 0, "gather_l2_ragged1"),        # MIPS's d + 1
+    (128, 1, 0, "gather_l2_ragged1"),        # base off 16-byte alignment
+    (128, 0, 1, "gather_l2_ragged1"),        # query lines off it
+    (129, 3, 1, "gather_l2_ragged1"),        # both, at d + 1
+    (200, 0, 0, "gather_l2_ragged1"),        # past the float4 row
+    (256, 2, 1, "gather_l2_ragged1"),        # the widest scalar row
+    (264, 0, 0, "gather_l2_blocks"),         # past it
+])
+def test_gather_l2_one_row_kernel_choice_on_card(cuda, d, base_off, q_off,
+                                                 want):
+    """gather_l2 launches the kernel one_row_kernel names, once, and reads
+    base in place."""
+    base, ids, queries = _gather_edge_inputs(cuda, 1024, 24, d, n=2000,
+                                             base_off=base_off, q_off=q_off)
+    assert l2ops.one_row_kernel(base, queries) == want
+    ptr = base.data_ptr()
+    out = _launched("gather_l2", want,
+                    lambda: l2ops.gather_l2(base, ids, queries))
+    assert base.data_ptr() == ptr
+    _check_gather(base, ids, queries, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,base_off", [(4, 0), (64, 0), (128, 0), (129, 0),
+                                        (130, 0), (4, 1), (64, 1), (128, 1),
+                                        (129, 1), (200, 1), (256, 1)])
+def test_gather_l2_equals_blocks_bitwise(cuda, monkeypatch, d, base_off):
+    """gather_l2's register kernels sum each row's terms in the lanes, order,
+    roundings and pairs of the block kernel wherever it reads the same terms
+    a lane: one float4 (d % 4 == 0, d <= 128, aligned; ``sq_diff`` fuses
+    as its compiled sum does) or scalar columns (d % 4 != 0, or a base off
+    16-byte alignment, at every d <= 256).  The same floats to the bit, NaN
+    and inf slots included.  (On an aligned base at d % 4 == 0 past 128 the
+    block kernel reads two float4s a lane, the ragged kernel columns: the
+    same terms in another order, held to the plain version by the test
+    above.)"""
+    base, ids, queries = _gather_edge_inputs(cuda, 1024, 24, d, n=2000,
+                                             base_off=base_off)
+    want = l2ops.one_row_kernel(base, queries)
+    assert want != "gather_l2_blocks"
+    one = _launched("gather_l2", want,
+                    lambda: l2ops.gather_l2(base, ids, queries))
+    monkeypatch.setattr(l2ops, "one_row_kernel", lambda *a: "gather_l2_blocks")
+    blocks = _launched("gather_l2", "gather_l2_blocks",
+                       lambda: l2ops.gather_l2(base, ids, queries))
+    assert torch.equal(one.view(torch.int32), blocks.view(torch.int32))
 
 
 def _batched_edge_inputs(cuda, B, M, d, rows_off=0, q_cols=None, seed=0):

@@ -199,6 +199,28 @@ def test_tiled_kernel_choice(B, d, base_off, q_off, want):
     assert l2ops.tiled_kernel(base, queries) == want
 
 
+@pytest.mark.parametrize("d,base_off,q_off,want", [
+    (128, 0, 0, "gather_l2_row1"),           # backend="kernel"'s [128, 24]
+    (64, 0, 0, "gather_l2_row1"),            # half a warp a row
+    (129, 0, 0, "gather_l2_ragged1"),        # MIPS's ragged d + 1
+    (128, 1, 0, "gather_l2_ragged1"),        # base not 16-byte aligned
+    (128, 0, 1, "gather_l2_ragged1"),        # query lines not aligned
+    (200, 0, 0, "gather_l2_ragged1"),        # past the float4 row
+    (256, 0, 0, "gather_l2_ragged1"),        # the widest scalar row
+    (264, 0, 0, "gather_l2_blocks"),         # past it
+])
+def test_one_row_kernel_choice(d, base_off, q_off, want):
+    """gather_l2's kernel, one row a warp, by gather_l2_tiled's rule: the
+    float4 register kernel at d % 4 == 0, d <= 128 with aligned rows and
+    query lines, the ragged-d one at every other d <= 256, the block kernel
+    past it."""
+    base, queries = _f32((5, d), base_off), _f32((128, d), q_off)
+    assert l2ops.one_row_kernel(base, queries) == want
+    tiled = l2ops.tiled_kernel(base, queries)
+    assert want == {"gather_l2_rows": "gather_l2_row1",
+                    "gather_l2_ragged": "gather_l2_ragged1"}.get(tiled, tiled)
+
+
 @pytest.mark.parametrize("B,M,d,rows_off,q_cols,want", [
     (1024, 25, 128, 0, 128, "batched_l2_rows"),      # the build's selector
     (524, 128, 128, 0, 128, "batched_l2_rows"),      # the exact build's
@@ -223,26 +245,27 @@ def test_batched_kernel_choice(B, M, d, rows_off, q_cols, want):
 
 
 @pytest.mark.parametrize("d", RAGGED_D)
-@pytest.mark.parametrize("name", ["gather_l2_tiled", "batched_l2"])
+@pytest.mark.parametrize("name", ["gather_l2_tiled", "gather_l2",
+                                  "batched_l2"])
 def test_ragged_layouts_match_reference(name, d):
     """The layouts the ragged-d kernels take on the card — d of 129-256,
     views off 16-byte alignment, query lines 3d + 1 apart — through the
     port's wrappers and the JAX kernels, on the same values."""
     rng = np.random.default_rng(d)
     B, M, n = 3, 9, 40
-    if name == "gather_l2_tiled":
+    if name != "batched_l2":
         base = _f32((n, d), 1)
         base.copy_(torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)))
         ids = rng.integers(-1, n, (B, M)).astype(np.int32)
         ids[0, 0] = -1
         wide = torch.from_numpy(rng.normal(size=(B, 3 * d + 1)).astype(np.float32))
         queries = wide[:, 3:3 + d]                   # 3d + 1 apart, 4-byte offset
-        expect = np.asarray(ref_l2ops.gather_l2_tiled(
+        expect = np.asarray(getattr(ref_l2ops, name)(
             jnp.asarray(base.numpy()), jnp.asarray(ids),
             jnp.asarray(queries.numpy())))
         before = dict(l2ops.LAUNCHES)
-        out = l2ops.gather_l2_tiled(base, torch.from_numpy(ids),
-                                    queries.contiguous()).numpy()
+        out = getattr(l2ops, name)(base, torch.from_numpy(ids),
+                                   queries.contiguous()).numpy()
         assert l2ops.LAUNCHES == before
         assert np.isinf(out[ids < 0]).all() and np.isinf(expect[ids < 0]).all()
         ok = ids >= 0

@@ -3,9 +3,9 @@
 (bitdot, fused_estimate) of this tree against other versions of their
 sources, in one process on one card.
 
-    OLD=80e9e41; mkdir -p build/ab/old
-    for f in bitdot fused_estimate; do
-      git show $OLD:src/repro_torch/kernels/csrc/$f.cu > build/ab/old/$f.cu; done
+    OLD=5121c10; mkdir -p build/ab/old
+    for f in gather_l2.cu batched_l2.cu l2_rows.cuh; do
+      git show $OLD:src/repro_torch/kernels/csrc/$f > build/ab/old/$f; done
     python3 tools/l2_ab.py --variant old=build/ab/old
 
 Each ``--variant TAG=DIR`` names a directory holding any of
@@ -16,9 +16,12 @@ Each ``--variant TAG=DIR`` names a directory holding any of
 are built with the port's own ``nvcc`` flags, all at once, into
 ``build/ab/``.  Every C entry point of the timed signatures that a library
 exports is timed at the shapes of ``chip_smoke.py`` on its inputs:
-gather_l2 at ``GATHER_CASES`` (a base of 1M rows) and batched_l2 at
-``batched_cases()``, both held against the plain versions (rtol 1e-5, atol
-1e-4); bitdot at ``BITDOT_CASES`` (``bitdot_rows`` takes the query line
+gather_l2 and gather_l2_tiled at ``GATHER_CASES`` (a base of 1M rows),
+each case by the kernels that take its shape and the entry point's own
+one-kernel C function in an earlier source (``takes``), and batched_l2 at
+``batched_cases()``, all held against the plain versions (rtol 1e-5, atol
+1e-4; each row also says whether it equals the kernel the wrapper picks
+to the bit); bitdot at ``BITDOT_CASES`` (``bitdot_rows`` takes the query line
 as it is, an earlier source's ``bitdot`` padded to 32·W: at these shapes
 the same line) and fused_estimate at ``ESTIMATE_CASES`` (over
 ``ESTIMATE_TABLES`` code tables of 1M rows), each held to this tree's
@@ -29,9 +32,10 @@ row gives both times a launch and their mean, and the kernel's own
 duration from torch.profiler.  A first row times the harness's floor, a
 launch that does nothing.  One JSON line per row goes to stdout and to
 ``build/l2_ab.jsonl``, after the card's name and power limit; then
-ptxas's report of each library and, from ``cuobjdump -sass``, each RaBitQ
-kernel's barriers and the order of its loads and adds (the listings go to
-``build/ab/<tag>_<source>.sass``).
+ptxas's report of each library and, from ``cuobjdump -sass``, each gather-L2
+and RaBitQ kernel's barriers and the order of its loads and adds, and of
+a gather-L2 kernel's loads, shuffles, barriers and shared-memory accesses
+(the listings go to ``build/ab/<tag>_<source>.sass``).
 """
 
 from __future__ import annotations
@@ -45,10 +49,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 # the entry points timed where a library exports them: the one-kernel
-# entry points of the earliest sources (gather_l2_tiled, batched_l2) and
-# the kernels behind each in later ones
-GATHER_FNS = ("gather_l2_tiled", "gather_l2_blocks", "gather_l2_rows",
-              "gather_l2_ragged")
+# entry points of earlier sources (gather_l2_tiled, gather_l2, batched_l2)
+# and the kernels behind each in later ones
+GATHER_FNS = ("gather_l2_tiled", "gather_l2", "gather_l2_blocks",
+              "gather_l2_rows", "gather_l2_ragged", "gather_l2_row1",
+              "gather_l2_ragged1")
 BATCHED_FNS = ("batched_l2", "batched_l2_blocks", "batched_l2_rows",
                "batched_l2_ragged")
 # bitdot's entry points: an earlier source's takes the query line padded to
@@ -98,23 +103,25 @@ def entry_points(libs: dict, source: str, names: tuple) -> list:
     return found
 
 
-# the kernels behind an entry point, each taking every shape the one
+# the kernels behind each entry point, each taking every shape the one
 # before it takes (l2dist/ops.py's choice)
-KINDS = ("rows", "ragged", "blocks")
+KINDS = {"gather_l2_tiled": ("rows", "ragged", "blocks"),
+         "gather_l2": ("row1", "ragged1", "blocks"),
+         "batched_l2": ("rows", "ragged", "blocks")}
 
 
-def takes(fns: list, picks: str) -> list:
-    """The entry points that take a shape for which the wrapper picks
-    ``picks``: an earlier source's one-kernel entry point, and each kernel
-    of a kind no earlier in ``KINDS`` than the picked one's (the float4
-    register kernel only where it is picked, the ragged-d one up to d =
-    256)."""
-    def kind(name):
-        return name.rsplit("_", 1)[1]
-
+def takes(fns: list, entry: str, picks: str) -> list:
+    """The C functions that take a shape at which the wrapper of ``entry``
+    picks ``picks``: an earlier source's one-kernel function named
+    ``entry``, and each kernel of ``entry`` of a kind no earlier in its
+    ``KINDS`` than the picked one's (the float4 register kernel only where
+    it is picked, the ragged-d one up to d = 256)."""
+    prefix = entry.removesuffix("_tiled") + "_"
+    kinds = KINDS[entry]
+    names = {entry} | {prefix + k for k in
+                       kinds[kinds.index(picks.removeprefix(prefix)):]}
     return [(label, fn) for label, fn in fns
-            if kind(label) not in KINDS
-            or KINDS.index(kind(label)) >= KINDS.index(kind(picks))]
+            if label.split(":", 1)[1] in names]
 
 
 def kernel_ms(torch, call) -> float:
@@ -168,8 +175,6 @@ def gather_rows(cs, torch, libs, card: str) -> list:
         fn.restype = ctypes.c_int
     rows = []
     for name, B, M, d, path in cs.GATHER_CASES:
-        if name != "gather_l2_tiled":
-            continue
         if d not in bases:
             bases.clear()                # one 0.5 GB base at a time
             torch.cuda.empty_cache()
@@ -183,9 +188,10 @@ def gather_rows(cs, torch, libs, card: str) -> list:
         outs = torch.empty((sets, B, M), device=dev)
         expect = l2ref.gather_l2_ref(base, ids[0], queries)
         ok = ids[0] >= 0
-        picks = l2ops.tiled_kernel(base, queries)
-        calls, errs = {}, {}
-        for label, fn in takes(fns, picks):
+        picks = (l2ops.tiled_kernel if name == "gather_l2_tiled"
+                 else l2ops.one_row_kernel)(base, queries)
+        calls, errs, bits = {}, {}, {}
+        for label, fn in takes(fns, name, picks):
             def call(fn=fn, label=label):
                 stream = torch.cuda.current_stream().cuda_stream
                 for s in range(sets):
@@ -201,15 +207,19 @@ def gather_rows(cs, torch, libs, card: str) -> list:
                 got[ok], expect[ok], rtol=1e-5, atol=1e-4),
                 f"{label} [{B},{M}] disagrees with the plain version")
             errs[label] = float((got[ok] - expect[ok]).abs().max())
+            bits[label] = got.view(torch.int32).clone()
             calls[label] = call
+        tree = bits[f"tree:{picks}"]
         uniq = cs.unique_per_set(torch, ids)
         valid = int((ids >= 0).sum()) / sets
         bound_ms, _ = cs.bound(4 * (B * M + uniq * d + B * d + B * M),
                                3 * valid * d)
         for row in timed(cs, torch, calls, sets, shape=f"ids[{B},{M}] d={d}",
-                         path=path, bound_ms=bound_ms, card=card,
+                         path=path, bound_ms=bound_ms, card=card, entry=name,
                          wrapper_picks=picks):
-            rows.append(dict(row, max_abs_err=errs[row["kernel"]]))
+            rows.append(dict(row, max_abs_err=errs[row["kernel"]],
+                             bitwise_equal_to_picked=bool(torch.equal(
+                                 bits[row["kernel"]], tree))))
         del ids, outs
     del base, bases
     torch.cuda.empty_cache()
@@ -234,8 +244,8 @@ def batched_rows(cs, torch, libs, card: str) -> list:
         outs = torch.empty((sets, B, M), device=dev)
         expect = l2ref.batched_l2_ref(tiles[0], queries[0])
         picks = l2ops.batched_kernel(tiles[0], queries[0])
-        calls, errs = {}, {}
-        for label, fn in takes(fns, picks):
+        calls, errs, bits = {}, {}, {}
+        for label, fn in takes(fns, "batched_l2", picks):
             def call(fn=fn, label=label):
                 stream = torch.cuda.current_stream().cuda_stream
                 for s in range(sets):
@@ -249,12 +259,16 @@ def batched_rows(cs, torch, libs, card: str) -> list:
             cs.check(torch.allclose(outs[0], expect, rtol=1e-5, atol=1e-4),
                      f"{label} [{B},{M},{d}] disagrees with the plain version")
             errs[label] = float((outs[0] - expect).abs().max())
+            bits[label] = outs[0].view(torch.int32).clone()
             calls[label] = call
+        tree = bits[f"tree:{picks}"]
         bound_ms, _ = cs.bound(4 * (B * M * d + B * d + B * M), 3 * B * M * d)
         for row in timed(cs, torch, calls, sets, shape=f"rows[{B},{M},{d}]",
                          path=path, bound_ms=bound_ms, card=card,
-                         wrapper_picks=picks):
-            rows.append(dict(row, max_abs_err=errs[row["kernel"]]))
+                         entry="batched_l2", wrapper_picks=picks):
+            rows.append(dict(row, max_abs_err=errs[row["kernel"]],
+                             bitwise_equal_to_picked=bool(torch.equal(
+                                 bits[row["kernel"]], tree))))
         del tiles, queries, outs
     torch.cuda.empty_cache()
     return rows
@@ -351,12 +365,20 @@ def estimate_ab(cs, torch, libs, card: str) -> list:
     return rows
 
 
+# the memory and exchange instructions a gather-L2 kernel's ``order`` lists
+ORDER_OPS = ("LDG", "SHFL", "BAR", "LDS", "STS", "STG")
+
+
 def sass_report(tag: str, source: str, lib: Path) -> str:
-    """From ``cuobjdump -sass`` of a RaBitQ library: each kernel's
-    barriers; outside its loops (a backward branch and its target bound
-    one), its global loads before its first float add and after it; its
-    loads inside loops; and its shuffles and adds.  The listing goes to
-    ``build/ab/<tag>_<source>.sass``."""
+    """From ``cuobjdump -sass`` of a gather-L2 or RaBitQ library: each
+    kernel's barriers; outside its loops (a backward branch and its target
+    bound one), its global loads before its first float add and after it;
+    its loads inside loops; and its shuffles and adds.  For gather-L2 also
+    its ``order``: its global loads, shuffles, barriers, shared-memory
+    accesses and stores in address order, a run of one kind as ``OPxN`` and
+    a loop in brackets (the one-row register kernels read ``LDGx2 SHFL
+    LDG …``: the id and the query line at once, the id handed to the lanes,
+    then the row).  The listing goes to ``build/ab/<tag>_<source>.sass``."""
     import re
     import shutil
 
@@ -386,13 +408,28 @@ def sass_report(tag: str, source: str, lib: Path) -> str:
         first_add = (straight.index("FADD") if "FADD" in straight
                      else len(straight))
         names = [op for _, op, _ in ops]
+        order = ""
+        if source == "gather_l2":
+            seq = []
+            for a, op, _ in ops:
+                if any(lo == a for lo, _ in loops):
+                    seq.append(["[", 1])
+                if op in ORDER_OPS:
+                    if seq and seq[-1][0] == op:
+                        seq[-1][1] += 1
+                    else:
+                        seq.append([op, 1])
+                if any(hi == a for _, hi in loops):
+                    seq.append(["]", 1])
+            order = "; order " + " ".join(
+                op if k == 1 else f"{op}x{k}" for op, k in seq)
         parts.append(
             f"{name}: BAR {names.count('BAR')}; outside loops LDG "
             f"{straight[:first_add].count('LDG')} before the first FADD, "
             f"{straight[first_add:].count('LDG')} after it; in loops LDG "
             f"{names.count('LDG') - straight.count('LDG')}; SHFL "
             f"{names.count('SHFL')}, FADD {names.count('FADD')}, "
-            f"{len(ops)} instructions")
+            f"{len(ops)} instructions{order}")
     return f"[sass] {tag}_{source}: " + " | ".join(parts)
 
 
@@ -433,7 +470,7 @@ def main(argv=None) -> int:
         print(f"[ptxas] {tag}: " + " | ".join(
             ln.strip() for ln in text.splitlines()
             if "registers" in ln or "spill" in ln or "Compiling" in ln))
-    for source in ("bitdot", "fused_estimate"):
+    for source in ("gather_l2", "bitdot", "fused_estimate"):
         print(sass_report("tree", source, _build.library_path(source)))
         for tag in variants:
             lib = ROOT / "build" / "ab" / f"{tag}_{source}.so"
