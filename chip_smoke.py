@@ -13,6 +13,18 @@ take.  The kernel phase always uses the 1M base.  The exact build (n =
 (the paper calls it intractable past ~10⁵) and five more builders and a
 second δ-EMQG build at 500k would not fit the limit.
 
+The host sets most of the run's time.  On an H100 80GB HBM3 at 700 W,
+in one call on one host, the script before the live and resilient
+phases took 596.4 s and this one 618.6 s: its earlier phases 518.0 s,
+the live and resilient phases 100.6 s (PR 18's host ran the earlier
+phases in 437.6 s).  The live phase's op stream keeps its sizes
+(1,024-vector inserts, 2% deletes): an insert's cost is the connectivity
+repair's 8 rounds over the ≈ 10,000 nodes the build leaves cut off,
+whatever the batch; journal b checkpoints by hand so that each recovery
+replays at most one record, and the resilient phase checks
+rung 0 against the serve phase's drain instead of serving the queries a
+second time.
+
 Phases, each of which raises on a failed check (the script then exits
 non-zero and prints no result line):
 
@@ -28,7 +40,8 @@ non-zero and prints no result line):
                searches; codes [128, 24, 4] in the probe phase; the
                estimate of ids [128, 24] over a 1M-row code table, W = 4 in
                the drain and W = 5 in MIPS; rows [1024, 25, 128] in the
-               build's neighbor selection, [1024, 25, 129] in the MIPS
+               build's neighbor selection, [1024, 24, 128] in the live
+               phase's inserts, [1024, 25, 129] in the MIPS
                build's and [524, 128, 128] in the exact build's; and W =
                4's [128, 96] and the JAX package's
                benchmark shape [64, 64, 128], on no path), then timed with
@@ -65,21 +78,52 @@ non-zero and prints no result line):
                search of the build, on the same index; one JSON line each (device busy share, kernel
                launches and launches per hop, ms per hop), and the operator tables written to
                ``build/profile/`` under the checkout;
-7. exact    — ``build_exact`` (Algorithm 2) at n = 4,000, then Theorem 1:
+7. live     — on the same index, ``as_live`` and two journals under
+               ``build/live/`` with the op stream ``LIVE_OPS``: insert 1,024
+               (twice), delete 10,000 live ids (2%), consolidate, insert
+               1,024, delete half of those.  Journal ``a`` runs it
+               uninterrupted (an automatic checkpoint on the way): after
+               each delete ``search_live`` serves no tombstoned id; after
+               each insert the inserted vectors find themselves at distance
+               0 as often as 1,024 existing nodes do, less
+               ``LIVE_FIND_SLACK``; ``audit_live`` finds no structural
+               violation and its unreachable count equals the builder's
+               BFS.  Journal ``b`` runs it with a crash mid-splice in the
+               second insert, a torn record appended after the consolidate
+               and a bit-flipped newest checkpoint at the end, each
+               followed by ``recover``, whose state must equal ``a``'s at
+               the same sequence number bit for bit (b checkpoints by hand
+               after ops 1, 4, 5 and 6, so that each recovery replays
+               only what its fault left: 1, 0 and 1 records);
+               ``gather_l2_tiled`` and ``batched_l2`` launch on this path
+               (``live``); journal a's insert and consolidate stage times
+               (``live_stage_seconds`` of its metrics registry) printed;
+8. resilient — ``ResilientAnnServer`` on the same index: at rung 0 the
+               512 queries' ids and distances equal those of the serve
+               phase's ``AnnServer.drain`` with no retry, fallback or
+               breaker move (``fused_estimate`` and ``gather_l2_tiled``
+               launch: path ``resilient``); 2,048 queued at once walk the
+               ladder down and light traffic back to rung 0 (recall@10 by
+               rung printed); 4 NaN and 2 wrong-width queries among 128 are
+               rejected, the rest served; on the card the kernel tier
+               ``beam/auto`` is the breaker's only tier, so a persistent
+               fault there fails every response, with no fallback and no
+               crash, and a transient one is retried on it;
+9. exact    — ``build_exact`` (Algorithm 2) at n = 4,000, then Theorem 1:
    build      a greedy W = 1 search from the medoid for every corpus point
                returns that point at distance 0;
-8. baselines — each of ``baselines.BUILDERS`` at n = 20,000: degrees at
+10. baselines — each of ``baselines.BUILDERS`` at n = 20,000: degrees at
                most M, ≥ 99% of nodes reachable from the medoid (the
                reference's repair can leave a few cut off; ``knn`` has no
                repair), recall@10 of ``error_bounded_search`` printed;
-9. mips     — ``build_mips(quantized=True)`` at n = 50,000 (its launches
+11. mips     — ``build_mips(quantized=True)`` at n = 50,000 (its launches
                counted as the path ``mips_build``: at d + 1 = 129 the
                ragged-d register kernels ``gather_l2_ragged`` and
                ``batched_l2_ragged``, and never the block kernels)
                and ``mips_search`` for 256 queries (``gather_l2_ragged`` in
                its exact tier): recall@10 against brute-force inner
                product, ids against the plain path;
-10. lm      — smollm-135m at full width in bf16, weights from a seeded
+12. lm      — smollm-135m at full width in bf16, weights from a seeded
                ``torch.Generator``: the ``flash_attention`` kernel (its bf16
                instance on the tensor cores, ``flash_attn_sm90.cu``) against
                the plain blockwise attention at the prefill's shape (q [1,
@@ -106,8 +150,8 @@ non-zero and prints no result line):
 Every kernel's launch count is set to 0 just before the path that runs it
 and read just after; a kernel that path never launched fails the run.  The
 ``kernels`` line reports each kernel at the shape of the path whose launch
-count it prints (``gather_l2_tiled`` and ``batched_l2`` at three paths
-each; ``kernel`` names the kernel behind the entry point, whose launches
+count it prints (``gather_l2_tiled`` at three paths, ``batched_l2`` at
+four; ``kernel`` names the kernel behind the entry point, whose launches
 those are; a ragged-d row and ``gather_l2``'s also carry ``blocks_ms``, the
 block kernel's time at its shape).  Each phase prints its seconds.  The
 line before the last is the card; the one before it the ``kernels`` JSON;
@@ -168,6 +212,27 @@ FLASH_MAX_SDPA_RATIO = 4.0
 # kernel names of the dense products (cuBLAS's GEMM / GEMV kernels) in a
 # profile of the prefill
 GEMM_TAGS = ("gemm", "gemv", "nvjet", "xmma")
+
+# the live phase's op stream on the served index: (op, argument); an insert
+# takes clustered_vectors(LIVE_INSERT, 128, 48, seed), "delete" LIVE_DELETE
+# live ids (2% of SERVE_N, never the medoid), "delete_new" half of the
+# newest insert
+LIVE_INSERT = 1024
+LIVE_DELETE = 10_000
+LIVE_OPS = (("insert", 9), ("insert", 10), ("delete", 12), ("consolidate", None),
+            ("insert", 11), ("delete_new", 13))
+LIVE_CKPT_BYTES = 1_000_000    # two insert records pass it: one automatic
+LIVE_FIND_SLACK = 0.05         # inserted self-hit share ≥ existing − this
+LIVE_AUDIT_SAMPLE = 256
+# the stages core.updates times into live_stage_seconds {op, stage}
+LIVE_STAGES = {"insert": ("search", "select", "reverse_edges", "repair"),
+               "consolidate": ("merge", "select", "compact")}
+LIVE_AUDIT_AFTER = (1, 3, 4, 6)  # the first insert, delete and consolidate; the end
+# audit violations that mean a corrupted structure (an unreachable node is
+# the reference's repair at this n, ROADMAP C.5, and is counted instead)
+STRUCTURAL = ("out of range", "self-loop", "duplicate", "isolated",
+              "tombstoned")
+FAULT_QUERIES = 16             # the resilient phase's injected-fault batches
 
 
 def fail(msg: str):
@@ -290,20 +355,24 @@ ESTIMATE_TABLES = 8            # distinct 1M-row code tables the timing cycles
 REPORTED = (("gather_l2_tiled", "drain"), ("gather_l2_tiled", "build"),
             ("gather_l2_tiled", "mips_build"), ("gather_l2", "exact_kernel"),
             ("bitdot", "probe"), ("fused_estimate", "drain"),
-            ("batched_l2", "build"), ("batched_l2", "exact_build"),
+            ("batched_l2", "build"), ("batched_l2", "live"),
+            ("batched_l2", "exact_build"),
             ("batched_l2", "mips_build"), ("flash_attention", "lm_prefill"))
 
 
 def batched_cases() -> tuple:
     """(B, M, d, path) of the batched_l2 launch: the selector's kept set in
     the build (max_keep = M + 1 in the degree alignment) at d = 128 and at
-    MIPS's ragged d + 1 = 129, the exact build's [block, max_degree] at
+    MIPS's ragged d + 1 = 129, in the live phase's insert (max_keep = M),
+    the exact build's [block, max_degree] at
     EXACT_N (``build_exact``'s own defaults), and the JAX package's
     benchmark shape."""
     from repro_torch.core.build_exact import _default_block, _default_max_degree
 
     kept = (BUILD_PARAMS["block"], BUILD_PARAMS["max_degree"] + 1)
-    return ((*kept, 128, "build"), (*kept, 129, "mips_build"),
+    # insert's selection keeps M of its LIVE_INSERT new rows
+    live = (LIVE_INSERT, BUILD_PARAMS["max_degree"], 128, "live")
+    return ((*kept, 128, "build"), live, (*kept, 129, "mips_build"),
             (_default_block(EXACT_N, 128), _default_max_degree(EXACT_N), 128,
              "exact_build"),
             (64, 64, 128, "reference benchmark, no path"))
@@ -821,7 +890,7 @@ def serve_phase(torch, n: int, card: str):
     return idx, vq, dict(n=n, build_s=build_s, recall=recall, qps=s.qps,
                          max_latency_ms=s.max_latency_s * 1e3,
                          drain_s=s.total_search_s, hops=hops,
-                         ms_per_hop=ms_per_hop), counts
+                         ms_per_hop=ms_per_hop), counts, out
 
 
 def probe_exact_phase(torch, idx, vq, card: str, counts: dict) -> None:
@@ -1400,6 +1469,371 @@ def profile_phase(torch, idx, vq, out: Path, card: str) -> None:
         print(f"[profile] {json.dumps(row)}")
 
 
+def live_payload(op: str, arg, live) -> dict:
+    """The numpy payload of one op of LIVE_OPS on the state ``live``."""
+    from repro_torch.data import clustered_vectors
+
+    if op == "insert":
+        return {"vectors": clustered_vectors(LIVE_INSERT, 128, 48, seed=arg)}
+    if op == "delete":
+        tomb = live.tombstones.cpu().numpy().copy()
+        tomb[live.graph.medoid] = True
+        return {"ids": np.random.default_rng(arg).choice(
+            np.where(~tomb)[0], LIVE_DELETE, replace=False)}
+    if op == "delete_new":
+        newest = np.arange(live.graph.n - LIVE_INSERT, live.graph.n)
+        return {"ids": np.random.default_rng(arg).choice(
+            newest, LIVE_INSERT // 2, replace=False)}
+    return {}
+
+
+def live_apply(journal, op: str, payload: dict) -> None:
+    if op == "insert":
+        journal.insert(payload["vectors"])
+    elif op in ("delete", "delete_new"):
+        journal.delete(payload["ids"])
+    else:
+        journal.consolidate()
+
+
+def same_live(torch, a, b) -> bool:
+    """Bitwise equality of two LiveIndex states."""
+    return (torch.equal(a.graph.vectors, b.graph.vectors)
+            and torch.equal(a.graph.neighbors, b.graph.neighbors)
+            and torch.equal(a.tombstones, b.tombstones)
+            and a.graph.medoid == b.graph.medoid)
+
+
+def self_hits(torch, live, ids):
+    """bool per node of ``ids``: ``search_live`` (k = 10) returns it for
+    its own vector at distance 0 (one batch: the loop's cost is per hop)."""
+    from repro_torch.core.updates import search_live
+
+    ids = torch.as_tensor(ids, device="cuda")
+    res = search_live(live, live.graph.vectors[ids.long()], 10)
+    hit = (res.ids == ids[:, None].to(res.ids.dtype)) & (res.dists == 0)
+    return hit.any(1).cpu().numpy()
+
+
+def live_audit(torch, live, what: str, card: str) -> dict:
+    """audit_live: no structural violation, and its unreachable count equal
+    to the builder's BFS on the same arrays; its header printed."""
+    from repro_torch.core.build_approx import _bfs_reachable
+    from repro_torch.core.verify import audit_live
+
+    t0 = time.perf_counter()
+    rep = audit_live(live, sample=LIVE_AUDIT_SAMPLE)
+    torch.cuda.synchronize()
+    audit_s = time.perf_counter() - t0
+    bad = [v for v in rep.violations if any(k in v for k in STRUCTURAL)]
+    check(not bad, f"audit after {what}: {bad}")
+    g = live.graph
+    bfs = int((~live.tombstones
+               & ~_bfs_reachable(g.neighbors, g.medoid)).sum())
+    check(rep.metrics.get("n_unreachable_live") == bfs,
+          f"audit after {what}: {rep.metrics.get('n_unreachable_live')} "
+          f"unreachable, the builder's BFS {bfs}")
+    print(f"[live] audit after {what}: {rep.summary().splitlines()[0]}; "
+          f"unreachable live {bfs} (BFS agrees); {audit_s:.2f} s ({card})")
+    return dict(unreachable=bfs, audit_s=audit_s)
+
+
+def live_phase(torch, idx, vq, card: str, counts: dict) -> dict:
+    """Insert / delete / consolidate on the served δ-EMQG through two
+    journals: ``a`` uninterrupted (checked after every op), ``b`` the same
+    stream with a crash mid-splice, a torn record and a bit-flipped
+    checkpoint, each followed by ``recover``, which must give a's state at
+    the same sequence number to the bit."""
+    import shutil
+
+    from repro_torch.core import BuildParams
+    from repro_torch.core.updates import (JournaledLiveIndex, as_live,
+                                          recover, search_live, wal_append)
+    from repro_torch.obs import MetricsRegistry, snapshot
+    from repro_torch.testing import (SimulatedCrash, crash_at, flip_bits,
+                                     torn_wal_record)
+
+    root = ROOT / "build" / "live"
+    shutil.rmtree(root, ignore_errors=True)
+    live0 = as_live(idx.graph, BuildParams(**BUILD_PARAMS))
+    reg = MetricsRegistry()
+    summary = dict(audit=[live_audit(torch, live0, "the build", card)])
+
+    reset_counts()
+    ja = JournaledLiveIndex.create(live0, str(root / "a"), metrics=reg,
+                                   checkpoint_every_bytes=LIVE_CKPT_BYTES)
+    states, payloads, op_s = {0: ja.live}, {}, []
+    for seq, (op, arg) in enumerate(LIVE_OPS, start=1):
+        payloads[seq] = live_payload(op, arg, ja.live)
+        n_before = ja.live.graph.n
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        live_apply(ja, op, payloads[seq])
+        torch.cuda.synchronize()
+        op_s.append(time.perf_counter() - t0)
+        check(ja.seq == seq, f"journal a at seq {ja.seq} after op {seq}")
+        live = states[seq] = ja.live
+        line = f"[live] op {seq} {op}: {op_s[-1]:.2f} s, n={live.graph.n}"
+        if op == "insert":
+            new = np.arange(n_before, n_before + LIVE_INSERT)
+            tomb = live.tombstones[:n_before].cpu().numpy()
+            old = np.random.default_rng(seq).choice(
+                np.where(~tomb)[0], LIVE_INSERT, replace=False)
+            hits = self_hits(torch, live, np.concatenate([new, old]))
+            ins, pre = hits[:LIVE_INSERT].mean(), hits[LIVE_INSERT:].mean()
+            check(ins >= pre - LIVE_FIND_SLACK,
+                  f"op {seq}: inserted nodes found at distance 0 on {ins:.4f}, "
+                  f"existing ones on {pre:.4f}")
+            line += (f"; self-hit share inserted {ins:.4f}, existing "
+                     f"{pre:.4f}")
+        if op.startswith("delete"):
+            res = search_live(live, vq, 10)
+            got = res.ids[res.ids >= 0].long()
+            check(got.numel() > 0 and not bool(live.tombstones[got].any()),
+                  f"op {seq}: search_live served a tombstoned id")
+            line += f"; {got.numel()} ids served, none tombstoned"
+        print(line + f" ({card})")
+        if seq in LIVE_AUDIT_AFTER:
+            summary["audit"].append(live_audit(torch, live, f"op {seq} {op}",
+                                               card))
+    torch.cuda.synchronize()
+    counts["live"] = kernel_counts()
+    check(counts["live"]["gather_l2_tiled"] > 0
+          and counts["live"]["batched_l2"] > 0,
+          f"the live path launched {json.dumps(counts['live'])}")
+    snap = snapshot(reg)["histograms"]
+    save = snap["checkpoint_save_seconds"]
+    step_dir = max((root / "a" / "ckpt").iterdir())
+    ckpt_mb = sum(f.stat().st_size for f in step_dir.iterdir()) / 1e6
+    check(snapshot(reg)["counters"].get("wal_auto_checkpoint_total", 0) >= 1,
+          "no automatic checkpoint in journal a")
+    # journal a's stage times (core.updates' live_stage_seconds), read
+    # before journal b adds its own
+    stages = {}
+    for op, names in LIVE_STAGES.items():
+        hists = {st: reg.histogram("live_stage_seconds",
+                                   {"op": op, "stage": st}) for st in names}
+        runs = sum(o == op for o, _ in LIVE_OPS)
+        check(all(h.count == runs for h in hists.values()),
+              f"live_stage_seconds of {op}: "
+              f"{ {st: h.count for st, h in hists.items()} } observations, "
+              f"expected {runs} each")
+        stages[op] = {st: h.mean for st, h in hists.items()}
+    summary["stages_mean_s"] = stages
+    print("[live] stages, mean s an op (journal a): " + "; ".join(
+        f"{op} " + ", ".join(f"{st} {v:.3f}" for st, v in st_s.items())
+        for op, st_s in stages.items()) + f" ({card})")
+
+    # journal b: the same stream, three faults, each recovered; its
+    # checkpoints are taken by hand (after ops 1, 4, 5 and 6), so that each
+    # recovery replays only the records the fault left to it
+    jb = JournaledLiveIndex.create(live0, str(root / "b"), metrics=reg)
+    recovered = []
+
+    def recovered_as_a(info_want: dict, what: str):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        j, info = recover(str(root / "b"), metrics=reg, device="cuda")
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        for k, v in info_want.items():
+            check(info[k] == v, f"recover after {what}: {k} {info[k]}, "
+                  f"expected {v}")
+        check(same_live(torch, j.live, states[j.seq]),
+              f"recover after {what}: state at seq {j.seq} differs from "
+              "the uninterrupted run's")
+        recovered.append(dict(after=what, s=rec_s, seq=j.seq, **{
+            k: info[k] for k in ("checkpoint_step", "replayed", "torn_seq")}))
+        print(f"[live] recover after {what}: {rec_s:.2f} s, checkpoint "
+              f"{info['checkpoint_step']}, {info['replayed']} records "
+              f"replayed, torn {info['torn_seq']}, seq {j.seq}: bitwise "
+              f"equal to journal a ({card})")
+        return j
+
+    for seq, (op, _) in enumerate(LIVE_OPS, start=1):
+        if seq == 2:
+            jb.fault_hook = crash_at("mid_splice")
+            try:
+                live_apply(jb, op, payloads[seq])
+                fail("the mid-splice crash did not fire")
+            except SimulatedCrash:
+                pass
+            del jb                       # only the disk survives
+            jb = recovered_as_a(dict(checkpoint_step=1, replayed=1,
+                                     torn_seq=None), "a crash mid-splice")
+            continue
+        if seq == 5:
+            # a record appended after the consolidate, torn on disk (as a
+            # crash in a later append leaves it): replay stops before it
+            wal_append(jb.wal_dir, seq, op, payloads[seq])
+            torn_wal_record(jb.wal_dir, seq)
+            del jb
+            jb = recovered_as_a(dict(checkpoint_step=4, replayed=0,
+                                     torn_seq=5), "a torn record")
+        live_apply(jb, op, payloads[seq])
+        if seq in (1, 4, 5):
+            jb.checkpoint()
+    check(same_live(torch, jb.live, states[len(LIVE_OPS)]),
+          "journal b's final state differs from journal a's")
+    jb.checkpoint()                  # the newest, then damaged: walk back
+    flip_bits(str(root / "b" / "ckpt" / f"step_{jb.seq:09d}" / "arrays.npz"),
+              n_bits=16, seed=3)
+    del jb
+    jb = recovered_as_a(dict(checkpoint_step=5, replayed=1, torn_seq=None),
+                        f"bit flips in checkpoint {len(LIVE_OPS)}")
+    snap = snapshot(reg)["histograms"]
+    summary.update(
+        op_s=op_s, ckpt_mb=ckpt_mb, ckpt_save_s=save["sum"] / save["count"],
+        recover=recovered,
+        wal_append_p50_s=snap["wal_append_seconds"]["p50"],
+        wal_fsync_p50_s=snap["wal_fsync_seconds"]["p50"])
+    print(f"[live] checkpoint {ckpt_mb:.1f} MB, save {summary['ckpt_save_s']:.2f} "
+          f"s (mean of {save['count']}); WAL append p50 "
+          f"{summary['wal_append_p50_s'] * 1e3:.2f} ms, fsync p50 "
+          f"{summary['wal_fsync_p50_s'] * 1e3:.2f} ms; launches "
+          f"{json.dumps(counts['live'])} ({card})")
+    del states, ja, jb
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return summary
+
+
+def resilient_phase(torch, idx, vq, served: list, serve: dict, card: str,
+                    counts: dict) -> dict:
+    """ResilientAnnServer on the served δ-EMQG: rung 0 equal to the serve
+    phase's ``AnnServer.drain`` of the same queries (``served``, with the
+    same server settings; ``serve`` has its QPS), with no retry, fallback
+    or breaker move; overload down the ladder and back; per-request
+    validation; injected kernel faults contained (on FAULT_QUERIES
+    queries: a lock-step batch costs what its slowest query's hops cost),
+    on the card with no plain tier behind the kernels."""
+    from repro_torch.core import SearchParams
+    from repro_torch.core.distances import brute_force_knn
+    from repro_torch.data import clustered_vectors
+    from repro_torch.obs import MetricsRegistry, snapshot
+    from repro_torch.serve import ResilienceConfig, ResilientAnnServer
+    from repro_torch.testing import FaultPlan, inject_search_faults
+
+    params = SearchParams(**SERVE_PARAMS)
+    queries = vq.cpu().numpy()
+    kw = dict(max_batch=128, buckets=(32, 128), device="cuda")
+
+    reg = MetricsRegistry()
+    srv = ResilientAnnServer(
+        idx, params, config=ResilienceConfig(degrade_depth=len(queries)),
+        metrics=reg, **kw)
+    reset_counts()
+    srv.submit_many(queries)
+    got = srv.drain()
+    torch.cuda.synchronize()
+    counts["resilient"] = kernel_counts()
+    s = srv.stats
+    moves = {k: v for k, v in snapshot(reg)["counters"].items()
+             if k.startswith("serve_breaker_transitions_total")}
+    check(all(r.ok and r.rung == 0 and r.tier == "beam/auto" for r in got),
+          "rung 0: a response was not served at rung 0 on beam/auto")
+    check(len(got) == len(served) and all(
+        np.array_equal(r.ids, w[0]) and np.array_equal(r.dists, w[1])
+        for r, w in zip(got, served)),
+          "rung 0: ids or distances differ from AnnServer's")
+    check(s.n_retried == s.n_fallback == s.n_failed == 0 and not moves,
+          f"un-faulted run: retried {s.n_retried}, fallback {s.n_fallback}, "
+          f"failed {s.n_failed}, breaker moves {moves}")
+    check(counts["resilient"]["fused_estimate"] > 0
+          and counts["resilient"]["gather_l2_tiled"] > 0,
+          f"the resilient path launched {json.dumps(counts['resilient'])}")
+    out = dict(qps=s.qps, max_latency_ms=s.max_latency_s * 1e3,
+               annserver_qps=serve["qps"],
+               annserver_max_latency_ms=serve["max_latency_ms"])
+    print(f"[resilient] rung 0: {s.n_requests} requests equal to AnnServer's "
+          f"(ids and distances), 0 retries, 0 fallbacks, 0 breaker moves; "
+          f"QPS {s.qps:.1f} (AnnServer in the serve phase "
+          f"{serve['qps']:.1f}), max latency {out['max_latency_ms']:.1f} ms "
+          f"(AnnServer {serve['max_latency_ms']:.1f}); launches "
+          f"{json.dumps(counts['resilient'])} ({card})")
+
+    # overload: 2048 at once walks the ladder down, light traffic back up
+    burst = clustered_vectors(2048, 128, 48, seed=14)
+    _, gt = brute_force_knn(burst, idx.graph.vectors, 10)
+    gt = gt.cpu().numpy()
+    srv = ResilientAnnServer(idx, params, config=ResilienceConfig(
+        degrade_depth=64, recover_depth=8, n_rungs=4), **kw)
+    srv.submit_many(burst)
+    rs = srv.drain()
+    degraded = srv.stats.n_degraded
+    check(all(r.ok for r in rs) and degraded > 0
+          and any(r.rung > 0 for r in rs), "overload never left rung 0")
+    per_rung = {}
+    for r, g in zip(rs, gt):
+        per_rung.setdefault(r.rung, []).append(
+            len(set(r.ids.tolist()) & set(g.tolist())) / 10)
+    peak = srv.rung
+    for _ in range(peak + 1):        # a queue under recover_depth: one up
+        srv.submit_many(burst[:4])
+        srv.drain()
+    check(srv.rung == 0, f"the ladder stayed at rung {srv.rung}")
+    out["recall_by_rung"] = {r: float(np.mean(v)) for r, v in
+                             sorted(per_rung.items())}
+    out["served_by_rung"] = {r: len(v) for r, v in sorted(per_rung.items())}
+    print(f"[resilient] overload 2048 at once: {degraded} served "
+          f"degraded, peak rung {peak}, back to 0 under light traffic; "
+          f"recall@10 by rung {json.dumps(out['recall_by_rung'])} over "
+          f"{json.dumps(out['served_by_rung'])} responses ({card})")
+
+    # validation: 4 NaN and 2 wrong-dimension queries among 128
+    srv = ResilientAnnServer(idx, params, config=ResilienceConfig(), **kw)
+    bad = {5: np.full(128, np.nan, np.float32), 17: np.full(128, np.nan,
+                                                            np.float32),
+           40: np.full(128, np.nan, np.float32), 99: np.full(128, np.nan,
+                                                             np.float32),
+           60: np.zeros(127, np.float32), 120: np.zeros(129, np.float32)}
+    for i in range(128):
+        srv.submit(bad.get(i, queries[i]))
+    rs = srv.drain()
+    rejected = [r.seq for r in rs if r.status == "rejected"]
+    check(sorted(rejected) == sorted(bad) and
+          sum(r.ok for r in rs) == 128 - len(bad),
+          f"validation rejected {rejected}")
+    print(f"[resilient] validation: rejected exactly {sorted(rejected)}, "
+          f"{128 - len(bad)} served ({card})")
+
+    # injected faults on the search seam.  On the card the kernel tier is
+    # the breaker's only tier: a fault there is retried, then fails its
+    # batch, and the plain version never answers for the kernels
+    q = queries[:FAULT_QUERIES]
+    fast = dict(backoff_s=0.0, degrade_depth=4096)
+    srv = ResilientAnnServer(idx, params, config=ResilienceConfig(
+        breaker_threshold=2, **fast), **kw)
+    tiers = [t.name for t in srv.breaker.tiers]
+    with inject_search_faults(srv, FaultPlan(
+            fail_first=10**6, match_backend="auto")) as inj:
+        srv.submit_many(q)
+        rs = srv.drain()
+    check(tiers == ["beam/auto"]
+          and all(r.status == "failed" and "KernelFault" in r.error
+                  for r in rs)
+          and {b for b, _ in inj.tier_log} == {"auto"}
+          and srv.stats.n_fallback == 0 and srv.stats.n_failed == len(q),
+          f"a persistent fault on beam/auto (tiers {tiers}, calls "
+          f"{inj.tier_log}, fallbacks {srv.stats.n_fallback}) did not fail "
+          "every response on the kernel tier alone")
+    print(f"[resilient] persistent fault on beam/auto, the card's only tier: "
+          f"{inj.n_failed} faults ({srv.stats.n_retried} retries), "
+          f"{len(rs)} responses failed, none crashed, 0 fallbacks ({card})")
+
+    srv = ResilientAnnServer(idx, params, config=ResilienceConfig(**fast),
+                             **kw)
+    with inject_search_faults(srv, FaultPlan(fail_first=1)) as inj:
+        srv.submit_many(q)
+        rs = srv.drain()
+    check(all(r.ok and r.tier == "beam/auto" for r in rs)
+          and srv.stats.n_retried == 1 and srv.stats.n_fallback == 0,
+          "a transient fault was not retried on the same tier")
+    print(f"[resilient] transient fault: retried once on beam/auto, "
+          f"{len(rs)} served ({card})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=SERVE_N,
@@ -1443,13 +1877,17 @@ def main(argv=None) -> int:
     if args.n < TARGET_N:
         print(f"[serve] n = {args.n:,}, cut from the {TARGET_N:,} target "
               "(SIFT1M's shape) to fit the run's time limit")
-    idx, vq, serve, counts = timed("serve", serve_phase, torch, args.n, card)
+    idx, vq, serve, counts, served = timed("serve", serve_phase, torch,
+                                           args.n, card)
     timed("probe_exact", probe_exact_phase, torch, idx, vq, card, counts)
     timed("ags_certify_filtered", ags_certify_filtered_phase, torch, idx, vq,
           card, counts)
     timed("profile", profile_phase, torch, idx, vq,
           ROOT / "build" / "profile", card)
-    del idx, vq
+    live = timed("live", live_phase, torch, idx, vq, card, counts)
+    resilient = timed("resilient", resilient_phase, torch, idx, vq, served,
+                      serve, card, counts)
+    del idx, vq, served
     torch.cuda.empty_cache()
     timed("exact_build", exact_build_phase, torch, card, counts)
     timed("baselines", baselines_phase, torch, card)
@@ -1471,6 +1909,8 @@ def main(argv=None) -> int:
         kernels.append(r)
     print(f"[paths] launch counts by path: {json.dumps(counts)}")
     print(f"[lm-summary] {json.dumps(lm)} card={card}")
+    print(f"[live-summary] {json.dumps(live)} card={card}")
+    print(f"[resilient-summary] {json.dumps(resilient)} card={card}")
     print(f"[serve-summary] {json.dumps(serve)} card={card} "
           f"wall={time.perf_counter() - t_start:.1f}s "
           f"phases={json.dumps(seconds)}")

@@ -7,6 +7,9 @@ Search:            search / greedy_search (Alg. 1) / error_bounded_search
                    (Alg. 3), probing_search / error_bounded_probing_search
                    (Alg. 5), ags_search — all on the lock-step beam engine;
                    filtered.filtered_search, mips.mips_search on top.
+Maintenance:       updates.JournaledLiveIndex (live insert / delete /
+                   consolidate, WAL + crash recovery), verify.audit
+                   (graph-invariant auditor)
 Theory probes:     local_optimum_mask, theorem4_delta_prime
 """
 
@@ -35,4 +38,4 @@ from .probing import (  # noqa: F401
     probing_search,
 )
 from . import baselines, bitset, distances, geometry, rabitq  # noqa: F401
-from . import filtered, mips  # noqa: F401
+from . import filtered, mips, updates, verify  # noqa: F401

@@ -24,7 +24,6 @@ import numpy as np
 import torch
 
 from .distances import brute_force_knn, medoid as find_medoid, pairwise_sqdist
-from .distances import sqdist_one_to_many
 from .geometry import adaptive_deltas, select_neighbors
 from .search import search
 from .types import GraphIndex, SearchParams, resolve_device, stable_topk_smallest
@@ -153,7 +152,12 @@ def _repair_connectivity(vectors: torch.Tensor, nbr: torch.Tensor,
                          max_rounds: int = 8) -> int:
     """Line 15: link unreachable nodes from their nearest reachable node; in
     place on ``nbr`` and ``deg``.  The link loop is sequential (a node's
-    degree changes as it gains links) and runs on host copies."""
+    degree changes as it gains links) and runs on host copies: for each
+    chunk of 1024 nodes, every vector it can read (the nearest reachable
+    nodes, their rows' ids and the chunk's own) comes off the device once,
+    and a full row's longest edge is found in numpy in the reference's own
+    expression, so its comparisons round as the reference's do."""
+    n = nbr.shape[0]
     total_fixed = 0
     for _ in range(max_rounds):
         seen = _bfs_reachable(nbr, med)
@@ -167,18 +171,40 @@ def _repair_connectivity(vectors: torch.Tensor, nbr: torch.Tensor,
             chunk = bad[s:s + 1024]
             d2 = pairwise_sqdist(vectors[chunk], gv)
             nearest = good[torch.argmin(d2, dim=1)]
-            for x, r in zip(chunk.tolist(), nearest.tolist()):
+            xs, rs = chunk.cpu().numpy(), nearest.cpu().numpy()
+            # id -1 in a full row reads the last vector, as numpy's -1 does
+            ids = np.concatenate([rs, nbr_h[np.unique(rs)].ravel(), xs])
+            need = np.unique(np.where(ids < 0, n - 1, ids))
+            vh = vectors[torch.from_numpy(need).to(vectors.device)].cpu().numpy()
+
+            def loc(i):
+                return np.searchsorted(need, np.where(i < 0, n - 1, i))
+
+            # each link's length and the edge lengths of every row full at
+            # the chunk's start, each in one numpy call (it sums every row
+            # as the reference's per-row call does); a row's lengths are
+            # kept current as its longest edge is replaced
+            lx, lr = loc(xs), loc(rs)
+            x_len = ((vh[lx] - vh[lr]) ** 2).sum(-1)
+            full = np.unique(rs[deg_h[rs] >= M])
+            lens = dict(zip(full.tolist(), (
+                (vh[loc(nbr_h[full, :M])] - vh[loc(full)][:, None]) ** 2
+            ).sum(-1)))
+            for i, (x, r) in enumerate(zip(xs.tolist(), rs.tolist())):
                 if deg_h[r] < M:
                     nbr_h[r, deg_h[r]] = x
                     deg_h[r] += 1
-                else:
-                    # replace r's longest out-edge (keeps the cap; the evicted
-                    # edge is recoverable in the next refinement iteration)
-                    row = torch.as_tensor(nbr_h[r, :M].astype(np.int64),
-                                          device=vectors.device)
-                    d2row = sqdist_one_to_many(vectors[r], vectors[row])
-                    nbr_h[r, int(torch.argmax(d2row))] = x
-                total_fixed += 1
+                    continue
+                # replace r's longest out-edge (keeps the cap; the evicted
+                # edge is recoverable in the next refinement iteration)
+                d2row = lens.get(r)
+                if d2row is None:           # filled up inside this chunk
+                    d2row = lens[r] = ((vh[loc(nbr_h[r, :M])]
+                                        - vh[lr[i]]) ** 2).sum(-1)
+                worst = int(np.argmax(d2row))
+                nbr_h[r, worst] = x
+                d2row[worst] = x_len[i]
+            total_fixed += xs.size
         nbr.copy_(torch.from_numpy(nbr_h))
         deg.copy_(torch.from_numpy(deg_h))
     return total_fixed

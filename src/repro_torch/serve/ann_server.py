@@ -6,6 +6,11 @@ lock-step beam engine, and the per-request results are fanned back out.
 ``drain`` moves each padded batch to the index's device once; on the card
 the exact tier runs the CUDA ``gather_l2_tiled`` kernel (``backend="auto"``).
 
+The server runs the batch-level beam engine; ``_search(queries, params,
+backend)`` is the one seam every batch passes through, which the
+resilience layer (``resilience.py``) steers (ladder params, breaker tier)
+and the fault harness (``testing.faults``) wraps.
+
 Clocks, metrics and spans are those of the JAX package's server: every
 request records its monotonic submit time ``wall_t`` (``obs.Timer``);
 latency is submit → completion on the monotonic clock.
@@ -37,13 +42,23 @@ from ..obs import (
 
 @dataclasses.dataclass
 class ServeStats:
-    """Serve-loop counters."""
+    """Serve-loop counters.  The resilience counters (``n_rejected``
+    onward) stay zero under the plain ``AnnServer``; ``ResilientAnnServer``
+    drives them."""
 
     n_requests: int = 0
     n_batches: int = 0
     total_latency_s: float = 0.0
     max_latency_s: float = 0.0
     total_search_s: float = 0.0
+    # -- resilience counters -------------------------------------------------
+    n_rejected: int = 0          # failed per-request validation (shape/NaN/…)
+    n_shed: int = 0              # refused by admission control (queue full)
+    n_degraded: int = 0          # served at a ladder rung below full quality
+    n_retried: int = 0           # search attempts retried after a fault
+    n_fallback: int = 0          # circuit-breaker tier switches
+    n_deadline_missed: int = 0   # completed after their deadline
+    n_failed: int = 0            # exhausted every tier/retry; error response
 
     @property
     def mean_latency_s(self) -> float:
@@ -91,11 +106,16 @@ class AnnServer:
         self._seq = 0
         self.stats = ServeStats()
 
-    def _search(self, queries: torch.Tensor):
+    def _search(self, queries: torch.Tensor,
+                params: Optional[SearchParams] = None,
+                backend: Optional[str] = None):
+        """Run one batch through the beam engine.  The overrides are the
+        seam the resilience layer steers and the fault harness wraps."""
+        params = params if params is not None else self.params
+        backend = backend if backend is not None else self.backend
         if self.quantized:
-            return probing_search(self.index, queries, self.params,
-                                  backend=self.backend)
-        return search(self.index, queries, self.params, backend=self.backend)
+            return probing_search(self.index, queries, params, backend=backend)
+        return search(self.index, queries, params, backend=backend)
 
     # -- observability seams -------------------------------------------------
     def _obs_batch(self, n_live: int, res, exec_s: float) -> None:
@@ -105,21 +125,24 @@ class AnnServer:
         self.metrics.histogram("serve_batch_execute_seconds").observe(exec_s)
         self.metrics.histogram("serve_batch_size",
                                buckets=DEFAULT_WORK_BUCKETS).observe(n_live)
-        record_search_result(self.metrics, res, n_live=n_live)
+        if res is not None:
+            record_search_result(self.metrics, res, n_live=n_live)
 
     def _obs_response(self, req: _Request, dispatch_t: float, done_t: float,
-                      batch_span=None) -> None:
+                      status: str, batch_span=None) -> None:
         """Per-request metrics + retroactive request/queue-wait spans."""
         if self.metrics is not None:
             self.metrics.counter("serve_responses_total",
-                                 {"status": "ok"}).inc()
-            self.metrics.histogram("serve_request_latency_seconds").observe(
-                done_t - req.wall_t)
-            self.metrics.histogram("serve_queue_wait_seconds").observe(
-                max(dispatch_t - req.wall_t, 0.0))
+                                 {"status": status}).inc()
+            if status in ("ok", "failed"):
+                self.metrics.histogram(
+                    "serve_request_latency_seconds").observe(
+                        done_t - req.wall_t)
+                self.metrics.histogram("serve_queue_wait_seconds").observe(
+                    max(dispatch_t - req.wall_t, 0.0))
         if self.tracer is not None:
             rspan = self.tracer.start_span(
-                "serve.request", seq=req.seq, status="ok",
+                "serve.request", seq=req.seq, status=status,
                 batch=None if batch_span is None else batch_span.span_id)
             rspan.start = req.wall_t
             qspan = self.tracer.start_span("serve.queue_wait", parent=rspan)
@@ -180,7 +203,7 @@ class AnnServer:
                 self.stats.n_requests += 1
                 self.stats.total_latency_s += lat
                 self.stats.max_latency_s = max(self.stats.max_latency_s, lat)
-                self._obs_response(req, t0, t1, batch_span=bspan)
+                self._obs_response(req, t0, t1, "ok", batch_span=bspan)
             if tr:
                 tr.end_span(mspan)
                 tr.end_span(bspan, size=len(take))

@@ -23,7 +23,11 @@ tensor-core kernel against the plain version in f32 on the same values, to
 half a bf16 ulp of each value plus 2^-12 of its row's RMS
 (``ref.err_ratio``: the kernel keeps p to ~16 bits as two bf16 terms and
 its sums in f32, and rounds only its output), and its two wgmma products
-on one tile against the same products in f32 (rtol/atol 1e-5).
+on one tile against the same products in f32 (rtol/atol 1e-5).  Live
+updates on the card launch the L2 kernels and recover from their journal
+to the same bits; the resilient server at rung 0 gives ``AnnServer``'s
+results exactly, with no retry and no fallback, and a failing kernel tier
+fails its batch instead of falling back to the plain version.
 """
 
 import dataclasses
@@ -47,7 +51,11 @@ from repro_torch.kernels.l2dist import ref as l2ref
 from repro_torch.configs import get_arch
 from repro_torch.models import common
 from repro_torch.models import transformer as tf
+from repro_torch.core.updates import JournaledLiveIndex, as_live, recover
+from repro_torch.core.verify import audit_live
+from repro_torch.serve import AnnServer, ResilienceConfig, ResilientAnnServer
 from repro_torch.serve import generate
+from repro_torch.testing import FaultPlan, inject_search_faults
 
 # the build's [block, M] at d = 128 and MIPS's ragged d + 1 = 129, cut in B
 L2_SHAPES = [(2, 16, 24), (4, 32, 128), (1, 7, 65), (8, 24, 128), (2, 24, 129)]
@@ -607,6 +615,78 @@ def test_engines_on_card_match_their_plain_paths(cuda):
             before["fused_estimate"]
         assert bitdot_ops.LAUNCHES["bitdot"] == before["bitdot"]
         assert (kern.ids == plain.ids).all(1).float().mean().item() >= 0.99
+
+
+@pytest.fixture
+def card_emqg(cuda):
+    bp = BuildParams(max_degree=12, beam_width=24, t=12, iters=2, block=512)
+    idx = build_emqg(clustered_vectors(3000, 32, 16, seed=0), bp,
+                     generator=torch.Generator().manual_seed(0), device=cuda)
+    return idx, bp
+
+
+@pytest.mark.cuda
+def test_live_updates_recover_bit_identically_on_card(card_emqg, tmp_path):
+    """Insert / delete / consolidate on the card launch the L2 kernels, and
+    recovery from the journal replays them to the same bits."""
+    idx, bp = card_emqg
+    before = dict(l2ops.LAUNCHES)
+    j = JournaledLiveIndex.create(as_live(idx.graph, bp), str(tmp_path))
+    j.insert(clustered_vectors(128, 32, 16, seed=2))
+    dead = np.setdiff1d(np.arange(0, 3000, 37), [idx.graph.medoid])
+    j.delete(dead)
+    res = j.search(clustered_vectors(64, 32, 16, seed=1), 10)
+    got = res.ids[res.ids >= 0].long()
+    assert not bool(j.live.tombstones[got].any())
+    j.consolidate()
+    j.insert(clustered_vectors(64, 32, 16, seed=3))
+    for name in ("gather_l2_tiled", "batched_l2"):
+        assert l2ops.LAUNCHES[name] > before[name], name
+    j2, info = recover(str(tmp_path), device=idx.device)
+    assert info["replayed"] == 4 and j2.seq == 4
+    a, b = j.live, j2.live
+    assert torch.equal(a.graph.vectors, b.graph.vectors)
+    assert torch.equal(a.graph.neighbors, b.graph.neighbors)
+    assert torch.equal(a.tombstones, b.tombstones)
+    assert a.graph.medoid == b.graph.medoid
+    rep = audit_live(j2.live, sample=64)
+    assert not [v for v in rep.violations if "unreachable" not in v
+                and "monotone" not in v], rep.summary()
+
+
+@pytest.mark.cuda
+def test_resilient_server_on_card_equals_ann_server(card_emqg):
+    """Un-faulted, the resilient server serves the kernels' results at rung
+    0 with no retry and no fallback; a fault on the kernel tier is retried
+    and then fails its batch: on the card no plain tier stands behind the
+    kernels."""
+    idx, _ = card_emqg
+    p = SearchParams(k=10, l0=10, l_max=64, alpha=1.2, adaptive=True,
+                     max_hops=512)
+    queries = clustered_vectors(96, 32, 16, seed=1)
+    plain = AnnServer(idx, p, max_batch=32, buckets=(32,),
+                      device=idx.device)
+    plain.submit_many(queries)
+    want = plain.drain()
+    srv = ResilientAnnServer(idx, p, config=ResilienceConfig(
+        degrade_depth=1024, backoff_s=0.0, breaker_threshold=1),
+        max_batch=32, buckets=(32,), device=idx.device)
+    before = bitdot_ops.LAUNCHES["fused_estimate"]
+    srv.submit_many(queries)
+    got = srv.drain()
+    assert bitdot_ops.LAUNCHES["fused_estimate"] > before
+    assert all(r.ok and r.rung == 0 and r.tier == "beam/auto" for r in got)
+    for r, (ids, dists) in zip(got, want):
+        assert np.array_equal(r.ids, ids) and np.array_equal(r.dists, dists)
+    assert srv.stats.n_retried == srv.stats.n_fallback == 0
+    assert [t.name for t in srv.breaker.tiers] == ["beam/auto"]
+    with inject_search_faults(srv, FaultPlan(fail_first=10**6,
+                                             match_backend="auto")) as inj:
+        srv.submit_many(queries[:32])
+        rs = srv.drain()
+    assert all(r.status == "failed" and "KernelFault" in r.error for r in rs)
+    assert [b for b, _ in inj.tier_log] == ["auto"] * 3
+    assert srv.stats.n_fallback == 0 and srv.stats.n_retried == 2
 
 
 @pytest.mark.cuda

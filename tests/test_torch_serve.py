@@ -28,7 +28,9 @@ from repro_torch.core.mips import build_mips
 from repro_torch.interop import index_from_numpy
 from repro_torch.launch import serve as port_serve
 from repro_torch.obs import MetricsRegistry
-from repro_torch.serve import AnnServer
+from repro_torch.checkpoint import restore_latest
+from repro_torch.core.updates import JournaledLiveIndex, as_live, recover
+from repro_torch.serve import AnnServer, ResilientAnnServer
 
 from conftest import gmm
 from test_torch_search import to_port
@@ -100,12 +102,39 @@ def test_launch_serve_runs_on_cpu(capsys):
     assert "recall@10=" in out and "search_hops_total" in out
 
 
-@pytest.mark.parametrize("flag", [["--resilient"], ["--shards", "2"],
-                                  ["--audit"]])
+@pytest.mark.parametrize("flag", [["--shards", "2"]])
 def test_launch_serve_refuses_unported_modes(flag):
     with pytest.raises(SystemExit) as exc:
         port_serve.main(["--device", "cpu", *flag])
     assert exc.value.code == 2
+
+
+@pytest.mark.parametrize("flags,stdout,stderr", [
+    (["--audit"], "[audit] OK", ""),
+    (["--resilient", "--deadline-ms", "60000", "--max-queue", "64",
+      "--degrade-at", "16", "--recover-at", "4", "--rungs", "3"],
+     "[serve] resilience: shed=0 rejected=0 degraded=40", ""),
+    (["--metrics-every", "0.1"], "search_hops_total", "[obs] req=40")],
+    ids=["audit", "resilient", "metrics-every"])
+def test_launch_serve_runs_ported_modes(capsys, flags, stdout, stderr):
+    """The reference CLI's single-node modes run on the CPU: the auditor
+    before serving, the resilience layer with its five knobs (40 queued
+    requests over a degrade depth of 16: one batch, served at rung 1), and
+    the periodic stderr summary."""
+    assert port_serve.main(["--n", "400", "--dim", "16", "--queries", "40",
+                            "--beam", "24", "--max-degree", "12",
+                            "--device", "cpu", *flags]) == 0
+    out = capsys.readouterr()
+    assert stdout in out.out and stderr in out.err
+
+
+def _journal(graph) -> str:
+    """A journal directory holding ``graph`` (written on the CPU)."""
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="journal_")
+    JournaledLiveIndex.create(as_live(graph), d)
+    return d
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -130,6 +159,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         AnnServer(g, SearchParams())
     with pytest.raises(RuntimeError, match="cuda"):
         port_serve.main(["--n", "64", "--dim", "8"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        ResilientAnnServer(g, SearchParams())
+    with pytest.raises(RuntimeError, match="cuda"):
+        restore_latest("no-such-directory", {"x": np.zeros(1)})
+    with pytest.raises(RuntimeError, match="cuda"):
+        recover(_journal(g))
 
 
 def _imported_modules(path: pathlib.Path):
