@@ -109,21 +109,47 @@ non-zero and prints no result line):
                ``beam/auto`` is the breaker's only tier, so a persistent
                fault there fails every response, with no fallback and no
                crash, and a transient one is retried on it;
-9. exact    — ``build_exact`` (Algorithm 2) at n = 4,000, then Theorem 1:
+9. sharded  — ``build_replicated``: 4 shards × 2 replicas of one δ-EMQG a
+               shard (n = 50,000, d = 128, the serve cell's parameters;
+               path ``sharded_build``) and a ``ShardVectorStore`` under
+               ``build/sharded/``; ``ShardedResilientAnnServer`` over 128
+               queries (seed 15; path ``sharded``): both merges equal
+               ``host_reference_merge`` (ids, distances to rtol 1e-4),
+               every id < n and once a row, the ids those of the plain
+               path on ``MIN_AGREE``; shard 1's primary killed: coverage
+               1.0 and the same ids; both replicas of shard 2: coverage
+               0.75, ``max_missed`` 10, none of its ids, the host merge
+               over the live slots, no breaker move; a persistent fault on
+               the ring tier: ``all_gather`` answers, one fallback; then
+               the CLI's three stages of 128 with ``auto_repair``, the
+               kills after the first and two injected rebuild faults
+               (shard 1's primary, shard 2's): shard 2's replica rebuilt
+               bitwise the original slot and rejected by the reference's
+               audit gate for the nodes the build left cut off (ROADMAP
+               C.8), nothing installed, coverage held at 0.75, each
+               attempt's seconds printed; the whole self-heal on the reference's audit-clean
+               chaos cell (512 × 8): the hole repaired first, the fault
+               backed off and retried, coverage back to 1.0 with no
+               ``revive_shard``, each repaired slot bitwise the original,
+               the healthy ids again (path ``shard_repair``: every
+               sweep's launches); and the SPMD search, 2 ranks on the card
+               in 2 processes with gloo between, equal to the single
+               controller on every rank;
+10. exact   — ``build_exact`` (Algorithm 2) at n = 4,000, then Theorem 1:
    build      a greedy W = 1 search from the medoid for every corpus point
                returns that point at distance 0;
-10. baselines — each of ``baselines.BUILDERS`` at n = 20,000: degrees at
+11. baselines — each of ``baselines.BUILDERS`` at n = 20,000: degrees at
                most M, ≥ 99% of nodes reachable from the medoid (the
                reference's repair can leave a few cut off; ``knn`` has no
                repair), recall@10 of ``error_bounded_search`` printed;
-11. mips     — ``build_mips(quantized=True)`` at n = 50,000 (its launches
+12. mips     — ``build_mips(quantized=True)`` at n = 50,000 (its launches
                counted as the path ``mips_build``: at d + 1 = 129 the
                ragged-d register kernels ``gather_l2_ragged`` and
                ``batched_l2_ragged``, and never the block kernels)
                and ``mips_search`` for 256 queries (``gather_l2_ragged`` in
                its exact tier): recall@10 against brute-force inner
                product, ids against the plain path;
-12. lm      — smollm-135m at full width in bf16, weights from a seeded
+13. lm      — smollm-135m at full width in bf16, weights from a seeded
                ``torch.Generator``: the ``flash_attention`` kernel (its bf16
                instance on the tensor cores, ``flash_attn_sm90.cu``) against
                the plain blockwise attention at the prefill's shape (q [1,
@@ -233,6 +259,13 @@ LIVE_AUDIT_AFTER = (1, 3, 4, 6)  # the first insert, delete and consolidate; the
 STRUCTURAL = ("out of range", "self-loop", "duplicate", "isolated",
               "tombstoned")
 FAULT_QUERIES = 16             # the resilient phase's injected-fault batches
+# the sharded phase: S shards × R replicas of one δ-EMQG a shard, the serve
+# cell's BuildParams and SearchParams; the CLI's three stages of 128 queries
+SHARDED_N = 50_000             # cut from 200,000 to fit the phase in ≈ 200 s
+SHARDED_S = 4
+SHARDED_R = 2
+SHARDED_STAGE = 128
+SPMD_RANKS = 2                 # the SPMD transport: 2 ranks on the one card
 
 
 def fail(msg: str):
@@ -1834,6 +1867,359 @@ def resilient_phase(torch, idx, vq, served: list, serve: dict, card: str,
     return out
 
 
+def heal_cell(torch, card: str, counted, store_dir: Path) -> dict:
+    """``ShardedResilientAnnServer`` with ``auto_repair`` on the reference's
+    audit-clean cell (its chaos test: 512 × 8 Gaussian rows, 4 shards × 2
+    replicas, M = 12, L = 24, t = 10, 3 iterations, δ = 0.5, seed 7,
+    quantized): the hole repaired first, an injected rebuild fault backed
+    off and retried, coverage back to 1.0 with no revive_shard call, each
+    repaired slot bitwise the original, the ids after repair the healthy
+    ones.  ``counted`` wraps the controller's sweep to count its
+    launches; the vector store goes to ``store_dir``."""
+    import shutil
+
+    from repro_torch.core import BuildParams, SearchParams
+    from repro_torch.core.distributed import build_replicated
+    from repro_torch.core.repair import RepairConfig, ShardVectorStore
+    from repro_torch.obs import MetricsRegistry, snapshot
+    from repro_torch.serve import ShardedResilientAnnServer
+    from repro_torch.testing import RepairFaultPlan, indexes_equal
+
+    S, R = 4, 2
+    X = np.random.default_rng(0).standard_normal((512, 8)).astype(np.float32)
+    Q = np.random.default_rng(1).standard_normal((64, 8)).astype(np.float32)
+    bp = BuildParams(max_degree=12, beam_width=24, t=10, iters=3, block=128,
+                     delta=0.5, align_degree=True)
+    sidx = build_replicated(X, S, R, bp, quantized=True, seed=7,
+                            device="cuda")
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store = ShardVectorStore.create(str(store_dir), X, S, bp, quantized=True,
+                                    seed=7)
+    skew = {"s": 0.0}
+    reg = MetricsRegistry()
+    srv = ShardedResilientAnnServer(
+        sidx, SearchParams(k=5, l0=16, l_max=32, adaptive=False,
+                           max_hops=256),
+        quantized=True, n_replicas=R, max_batch=64, buckets=(64,),
+        clock=lambda: time.monotonic() + skew["s"], metrics=reg,
+        auto_repair=RepairConfig(budget_per_sweep=S * R, backoff_s=1.0),
+        vector_store=store, repair_fault_hook=RepairFaultPlan(
+            fail_rebuilds=1).hook(), device="cuda")
+    srv.repair.sweep = counted(srv.repair.sweep)
+
+    def serve():
+        srv.submit_many(Q)
+        rs = srv.drain()
+        check(all(r.ok for r in rs), "a response of the heal cell failed")
+        return np.stack([r.ids for r in rs]), [r.coverage for r in rs]
+
+    healthy, _ = serve()
+    for s_, r_ in ((1, 0), (2, 0), (2, 1)):
+        srv.kill_shard(s_, r_)
+    hole = srv.coverage
+    ids, cov = serve()            # (2,0) faulted; (2,1) and (1,0) healed
+    check(hole == 0.75 and set(cov) == {1.0} and srv.repair.n_failed == 1
+          and not srv.registry._live[2, 0]
+          and not srv.registry.participation()[2 * R],
+          f"heal: coverage {hole} → {set(cov)}, failed "
+          f"{srv.repair.n_failed}; the faulted slot joined the mask")
+    skew["s"] += 2.0              # past the faulted slot's 1 s backoff
+    ids, cov = serve()
+    done = [e for e in snapshot(reg)["events"]
+            if e["name"] == "repair_succeeded"]
+    check(srv.repair.n_repaired == 3 and done[0]["shard"] == 2
+          and srv.coverage == 1.0 and np.array_equal(ids, healthy),
+          f"heal: {srv.repair.n_repaired} repaired, first "
+          f"{done[0] if done else None}, ids equal "
+          f"{np.array_equal(ids, healthy)}")
+    for slot in (1 * R, 2 * R, 2 * R + 1):
+        check(srv.index.slots[slot] is not sidx.slots[slot]
+              and indexes_equal(srv.index.slots[slot], sidx.slots[slot]),
+              f"heal: repaired slot {slot} is not the original, bitwise")
+    secs = [e["duration_s"] for e in done]
+    print(f"[sharded] heal cell, a correctness check at a toy size (512 × 8, "
+          f"4 shards × 2), not a real repair time: the hole repaired first, "
+          f"coverage 0.75 → 1.0 with no revive_shard call, 1 injected "
+          f"rebuild fault backed off and retried, 3 slots rebuilt, audited, "
+          f"spot-checked and installed bitwise equal to the original "
+          f"({', '.join(f'{x:.2f}' for x in secs)} s), ids after repair "
+          f"the healthy ones ({card})")
+    return dict(heal_check_repair_s=secs)
+
+
+def sharded_phase(torch, card: str, counts: dict) -> dict:
+    """The sharded δ-EMQG (``core.distributed``), self-repair
+    (``core.repair``) and ``ShardedResilientAnnServer`` on the card:
+    SHARDED_S shards × SHARDED_R replicas, the serve cell's parameters,
+    the queries in the CLI's three stages of SHARDED_STAGE."""
+    import shutil
+
+    from repro_torch.core import BuildParams, SearchParams
+    from repro_torch.core.distances import brute_force_knn
+    from repro_torch.core.distributed import (ShardedIndex, build_replicated,
+                                              host_reference_merge,
+                                              make_sharded_search,
+                                              spmd_search)
+    from repro_torch.core.repair import RepairConfig, ShardVectorStore
+    from repro_torch.data import clustered_vectors
+    from repro_torch.obs import MetricsRegistry, snapshot
+    from repro_torch.serve import ResilienceConfig, ShardedResilientAnnServer
+    from repro_torch.testing import (FaultPlan, RepairFaultPlan,
+                                     indexes_equal, inject_search_faults)
+
+    S, R, n, k = SHARDED_S, SHARDED_R, SHARDED_N, SERVE_PARAMS["k"]
+    per = -(-n // S)
+    bp = BuildParams(**BUILD_PARAMS)
+    params = SearchParams(**SERVE_PARAMS)
+    base = clustered_vectors(n, 128, 48, seed=0)
+    queries = clustered_vectors(3 * SHARDED_STAGE, 128, 48, seed=15)
+    stages = np.split(queries, 3)
+    _, gt = brute_force_knn(torch.as_tensor(queries, device="cuda"),
+                            torch.as_tensor(base, device="cuda"), k)
+    gt = gt.cpu()
+    out = dict(n=n, shards=S, replicas=R)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    sidx = build_replicated(base, S, R, bp, quantized=True, seed=0,
+                            device="cuda")
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    counts["sharded_build"] = kernel_counts()
+    for kernel in ("gather_l2_tiled", "batched_l2"):
+        check(counts["sharded_build"][kernel] > 0,
+              f"the sharded build never launched {kernel}")
+    store_dir = ROOT / "build" / "sharded" / "store"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    ShardVectorStore.create(str(store_dir), base, S, bp, quantized=True,
+                            seed=0)
+    out["store_s"] = time.perf_counter() - t0
+    print(f"[sharded] built {S} shards × {R} replicas of {per} rows in "
+          f"{out['build_s']:.1f} s, vector store in {out['store_s']:.1f} s; "
+          f"launches {json.dumps(counts['sharded_build'])} ({card})")
+
+    def drive(srv, q):
+        t0 = time.perf_counter()
+        srv.submit_many(q)
+        rs = srv.drain()
+        torch.cuda.synchronize()
+        check(all(r.ok for r in rs), f"a sharded response failed: "
+              f"{[r.error for r in rs if not r.ok][:1]}")
+        return rs, len(q) / (time.perf_counter() - t0)
+
+    def ids_of(rs):
+        return torch.as_tensor(np.stack([r.ids for r in rs])).long()
+
+    def dists_of(rs):
+        return torch.as_tensor(np.stack([r.dists for r in rs]))
+
+    # The CLI's three stages of 128 through one server with auto_repair,
+    # the failover check between the first two.  Every rebuild at this
+    # size is the original slot to the bit and is rejected by the
+    # reference's gate (verify.audit): each shard build leaves nodes cut
+    # off from its medoid (ROADMAP C.5, C.8), so nothing is installed and
+    # the mask never flips.  The two injected faults (shard 1's primary,
+    # then shard 2's) are contained: no build runs.  So one rebuild of
+    # shard 2 runs, its replica's; the backoff keeps each slot to one
+    # attempt
+    from repro_torch.core.build_approx import _bfs_reachable
+
+    repair_counts: dict = {}
+    attempts: list = []
+
+    def counted(sweep):
+        def run(now=None):
+            before = kernel_counts()
+            done = sweep(now)
+            for name, v in kernel_counts().items():
+                repair_counts[name] = repair_counts.get(name, 0) + v - \
+                    before[name]
+            attempts.extend(done)
+            return done
+        return run
+
+    # a queue of 128 stays at rung 0 (the ladder's default depth is 64)
+    rung0 = dict(degrade_depth=4096)
+    kw = dict(quantized=True, n_replicas=R, max_batch=128, buckets=(32, 128),
+              device="cuda")
+    reg = MetricsRegistry()
+    srv = ShardedResilientAnnServer(
+        sidx, params, config=ResilienceConfig(**rung0), metrics=reg,
+        auto_repair=RepairConfig(budget_per_sweep=S * R, backoff_s=3600.0,
+                                 backoff_cap_s=3600.0),
+        vector_store=str(store_dir),
+        repair_fault_hook=RepairFaultPlan(fail_rebuilds=2).hook(), **kw)
+    srv.repair.sweep = counted(srv.repair.sweep)
+    tiers = [t.name for t in srv.breaker.tiers]
+    check(tiers == ["sharded/all_gather", "sharded/ring"],
+          f"the sharded breaker's tiers are {tiers}")
+    reset_counts()
+    rs1, qps1 = drive(srv, stages[0])
+    counts["sharded"] = kernel_counts()
+    healthy, healthy_d = ids_of(rs1), dists_of(rs1)
+    check(all(r.coverage == 1.0 and r.max_missed == 0 and r.rung == 0
+              and r.tier == "sharded/all_gather" for r in rs1),
+          "a healthy response was degraded or off the all_gather tier")
+    traj = [srv.coverage]
+    # replica failover: shard 1's primary dies, its replica answers; the
+    # sweep's one attempt at it meets the first injected fault
+    srv.kill_shard(1, 0)
+    rs, _ = drive(srv, stages[0])
+    check(all(r.coverage == 1.0 and r.max_missed == 0 for r in rs)
+          and srv.registry.n_failover == 1
+          and torch.equal(ids_of(rs), healthy),
+          "failover to shard 1's replica changed coverage or ids")
+    check(srv.repair.n_failed == 1 and srv.repair.last_rebuild is None
+          and not srv.registry.participation()[1 * R],
+          "the faulted repair built or joined the mask")
+    traj.append(srv.coverage)
+    # a coverage hole: both replicas of shard 2; the sweep tries the hole
+    # first: the primary meets the second injected fault, the replica is
+    # rebuilt and refused by the gate
+    srv.kill_shard(2, 0)
+    srv.kill_shard(2, 1)
+    traj.append(srv.coverage)
+    rs2, qps2 = drive(srv, stages[1])
+    traj.append(srv.coverage)
+    rs3, qps3 = drive(srv, stages[2])
+    traj.append(srv.coverage)
+    for kernel in ("gather_l2_tiled", "fused_estimate"):
+        check(counts["sharded"][kernel] > 0,
+              f"the sharded search never launched {kernel}")
+    check(int(healthy.max()) < n and all(
+        len(set(v)) == len(v) for v in
+        ([x for x in row if x >= 0] for row in healthy.tolist())),
+          "a served id is out of range or twice in a row")
+    live = srv.registry.participation()
+    healthy_mask = np.zeros_like(live)
+    healthy_mask[::R] = True
+    ref_i, ref_d = host_reference_merge(
+        sidx, type(srv.registry)(S, R), stages[0], params, quantized=True)
+    ring_i, ring_d = make_sharded_search("ring", quantized=True)(
+        sidx, stages[0], params, valid=healthy_mask)
+    for name, ids, d in (("all_gather", healthy, healthy_d),
+                         ("ring", ring_i.cpu(), ring_d.cpu())):
+        check(torch.equal(ids.long(), torch.as_tensor(ref_i).long())
+              and torch.allclose(d, torch.as_tensor(ref_d), rtol=1e-4),
+              f"the {name} merge differs from host_reference_merge")
+    plain_i, _ = make_sharded_search("all_gather", quantized=True,
+                                     backend="jnp")(sidx, stages[0], params,
+                                                    valid=healthy_mask)
+    share = agree(healthy, plain_i.cpu())
+    check(share >= MIN_AGREE,
+          f"sharded ids match the plain path on {share:.4f} of queries")
+    hole = ids_of(rs2)
+    ref_i, _ = host_reference_merge(sidx, srv.registry, stages[1], params,
+                                    quantized=True)
+    check(all(r.coverage == 0.75 and r.max_missed == k for r in rs2 + rs3),
+          f"the hole reads coverage {rs2[0].coverage}, max_missed "
+          f"{rs2[0].max_missed}")
+    check(not bool(((hole >= 2 * per) & (hole < 3 * per)).any()),
+          "an id of dead shard 2 was served")
+    check(torch.equal(hole, torch.as_tensor(ref_i).long()),
+          "the hole's ids differ from host_reference_merge over the live "
+          "slots")
+    check(srv.stats.n_fallback == 0 and srv.stats.n_retried == 0,
+          "a shard death moved the breaker")
+    events = [e for e in snapshot(reg)["events"]
+              if e["name"] == "repair_failed"]
+    errors = {(e["shard"], e["replica"]): e["error"] for e in events}
+    cut = int((~_bfs_reachable(sidx.slots[2 * R].graph.neighbors,
+                               sidx.slots[2 * R].graph.medoid)).sum())
+    shard, replica, local = srv.repair.last_rebuild
+    check(len(events) == 3 and [(o.shard, o.replica) for o in attempts]
+          == [(1, 0), (2, 0), (2, 1)]
+          and "RepairFault" in errors[(1, 0)]
+          and "RepairFault" in errors[(2, 0)]
+          and f"{cut} live nodes unreachable" in errors[(2, 1)] and cut > 0
+          and (shard, replica) == (2, 1),
+          f"repair attempts {errors}, last rebuild {(shard, replica)}, "
+          f"{cut} nodes cut off")
+    check(indexes_equal(local, sidx.slots[2 * R + 1]),
+          "shard 2's rebuild is not the original slot, bitwise")
+    check(srv.index is sidx and srv.repair.n_repaired == 0
+          and traj == [1.0, 1.0, 0.75, 0.75, 0.75],
+          f"a rejected rebuild changed serving: coverage {traj}")
+    # each attempt's seconds on the clock of its sweep: an injected fault
+    # stops after the shard's load, before its build; the rebuild is a
+    # real repair's load, build and audit at this cell's shard size
+    out.update(qps_stages=[qps1, qps2, qps3], coverage=traj,
+               recall_healthy=recall_at(healthy, gt[:SHARDED_STAGE]),
+               recall=recall_at(ids_of(rs1 + rs2 + rs3), gt), cut_off=cut,
+               repair_attempt_s={f"{o.shard}.{o.replica}": o.duration_s
+                                 for o in attempts})
+    rebuild_s = attempts[-1].duration_s
+    print(f"[sharded] healthy: {len(rs1)} queries at QPS {qps1:.1f}, "
+          f"recall@10 {out['recall_healthy']:.4f} (all three stages "
+          f"{out['recall']:.4f}); both merges equal host_reference_merge "
+          f"(ids, dists to rtol 1e-4); ids equal to the plain path on "
+          f"{share:.4f}; launches {json.dumps(counts['sharded'])} ({card})")
+    print(f"[sharded] failover: shard 1's primary killed, coverage 1.0, ids "
+          f"equal to the healthy run's, its repair met the injected fault "
+          f"(contained, no build); hole: shard 2's replicas killed, coverage "
+          f"0.75, max_missed {k}, no id of its rows, ids equal to "
+          f"host_reference_merge over the live slots, 0 breaker moves; "
+          f"shard 2's primary met the second injected fault, its replica's "
+          f"rebuild is bitwise the original slot and rejected by the audit "
+          f"gate ({cut} nodes cut off, C.5/C.8): nothing installed; coverage "
+          f"{traj}; stage QPS {qps1:.1f}, {qps2:.1f} (with the rebuild), "
+          f"{qps3:.1f} ({card})")
+    print(f"[sharded] repair attempts at this cell ({per} rows a shard), "
+          f"each on its sweep's clock: "
+          + ", ".join(f"shard {o.shard} replica {o.replica} {o.duration_s:.3f} "
+                      f"s" for o in attempts)
+          + f"; the rebuild (load, build, audit, refused) {rebuild_s:.2f} s: "
+          f"what one real repair attempt costs here ({card})")
+
+    # a merge fault: the ring tier opens, all_gather answers the batch
+    srv = ShardedResilientAnnServer(
+        sidx, params, merge="ring",
+        config=ResilienceConfig(backoff_s=0.0, **rung0), **kw)
+    with inject_search_faults(srv, FaultPlan(
+            fail_first=10**6, match_backend="ring")) as inj:
+        rs, _ = drive(srv, stages[0][:FAULT_QUERIES])
+    check(all(r.tier == "sharded/all_gather" for r in rs)
+          and srv.stats.n_fallback == 1
+          and torch.equal(ids_of(rs), healthy[:FAULT_QUERIES]),
+          f"a ring fault: tiers {[r.tier for r in rs][:1]}, fallbacks "
+          f"{srv.stats.n_fallback}")
+    print(f"[sharded] ring merge faulted {inj.n_failed} times: the tier "
+          f"opened, all_gather answered {len(rs)} queries with the healthy "
+          f"ids, 1 fallback ({card})")
+
+    # self-repair end to end where the reference's gate passes: the
+    # reference's chaos test's cell (4 × 128 rows, d = 8, δ = 0.5)
+    out.update(heal_cell(torch, card, counted, store_dir.parent / "heal"))
+    counts["shard_repair"] = repair_counts
+    for kernel in ("gather_l2_tiled", "batched_l2", "fused_estimate"):
+        check(repair_counts.get(kernel, 0) > 0,
+              f"the repair never launched {kernel}")
+
+    # the SPMD transport: one process a slot on the card, gloo between; the
+    # primaries of the first SPMD_RANKS shards as an index of their own
+    small = ShardedIndex(slots=sidx.slots[:SPMD_RANKS * R:R],
+                         offsets=sidx.offsets[:SPMD_RANKS * R:R],
+                         n_total=SPMD_RANKS * per,
+                         sizes=sidx.sizes[:SPMD_RANKS * R:R])
+    t0 = time.perf_counter()
+    ranks = spmd_search(small, stages[0], params, quantized=True,
+                        dist_backend="gloo", timeout_s=300)
+    out["spmd_s"] = time.perf_counter() - t0
+    for merge in ("all_gather", "ring"):
+        ids, d = make_sharded_search(merge, quantized=True)(small, stages[0],
+                                                            params)
+        check(all(np.array_equal(r[merge][0], ids.cpu().numpy())
+                  and np.array_equal(r[merge][1], d.cpu().numpy())
+                  for r in ranks),
+              f"the SPMD {merge} differs from the single controller's")
+    print(f"[sharded] SPMD: {SPMD_RANKS} ranks on the card (gloo over host "
+          f"copies), shards 0-{SPMD_RANKS - 1} ({SPMD_RANKS * per} rows), "
+          f"both merges equal the single controller's ids and dists on every "
+          f"rank; {out['spmd_s']:.1f} s with the processes' start ({card})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=SERVE_N,
@@ -1889,6 +2275,8 @@ def main(argv=None) -> int:
                       serve, card, counts)
     del idx, vq, served
     torch.cuda.empty_cache()
+    sharded = timed("sharded", sharded_phase, torch, card, counts)
+    torch.cuda.empty_cache()
     timed("exact_build", exact_build_phase, torch, card, counts)
     timed("baselines", baselines_phase, torch, card)
     timed("mips", mips_phase, torch, card, counts)
@@ -1911,6 +2299,7 @@ def main(argv=None) -> int:
     print(f"[lm-summary] {json.dumps(lm)} card={card}")
     print(f"[live-summary] {json.dumps(live)} card={card}")
     print(f"[resilient-summary] {json.dumps(resilient)} card={card}")
+    print(f"[sharded-summary] {json.dumps(sharded)} card={card}")
     print(f"[serve-summary] {json.dumps(serve)} card={card} "
           f"wall={time.perf_counter() - t_start:.1f}s "
           f"phases={json.dumps(seconds)}")

@@ -10,6 +10,9 @@ Search:            search / greedy_search (Alg. 1) / error_bounded_search
 Maintenance:       updates.JournaledLiveIndex (live insert / delete /
                    consolidate, WAL + crash recovery), verify.audit
                    (graph-invariant auditor)
+Scale-out:         distributed (ShardedIndex, the sharded search and its
+                   exact merges, shard health), repair (self-healing
+                   shards from a durable vector store)
 Theory probes:     local_optimum_mask, theorem4_delta_prime
 """
 
@@ -39,3 +42,4 @@ from .probing import (  # noqa: F401
 )
 from . import baselines, bitset, distances, geometry, rabitq  # noqa: F401
 from . import filtered, mips, updates, verify  # noqa: F401
+from . import distributed, repair  # noqa: F401

@@ -6,6 +6,12 @@ this port.
 the RaBitQ fields too, ``EMQGIndex`` — on ``device``.  The ``uint32`` code
 words become their ``int32`` view, bit for bit.
 
+``index_to_numpy`` is the inverse: a port index as the keyword arguments of
+``index_from_numpy``.  ``sharded_from_numpy`` takes a reference
+``ShardedIndex``'s stacked leaves (each with a leading dim S) with its
+``offsets``, ``n_total`` and ``sizes``, and returns the port's
+``ShardedIndex``, one ``index_from_numpy`` a slot.
+
 ``lm_params_from_numpy`` takes the reference LM's parameter tree as numpy
 arrays and returns the port's parameter dict on ``device``.
 
@@ -19,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .core.distributed import ShardedIndex
 from .core.types import EMQGIndex, GraphIndex, RaBitQCodes, resolve_device
 
 
@@ -45,6 +52,50 @@ def index_from_numpy(vectors, neighbors, medoid, kind: str = "delta_emg",
         ip_xo=f32(ip_xo), rotation=f32(rotation), center=f32(center),
         dim=int(dim if dim is not None else graph.dim))
     return EMQGIndex(graph=graph, codes=rq)
+
+
+def index_to_numpy(index) -> dict:
+    """``index``'s fields as numpy arrays, the keyword arguments of
+    ``index_from_numpy`` (the code words as their ``uint32`` pattern)."""
+    g = index.graph if isinstance(index, EMQGIndex) else index
+    out = dict(vectors=g.vectors.cpu().numpy(),
+               neighbors=g.neighbors.cpu().numpy(), medoid=g.medoid,
+               kind=g.kind, delta=g.delta)
+    if isinstance(index, EMQGIndex):
+        c = index.codes
+        out.update(codes=c.codes.cpu().numpy().view(np.uint32),
+                   norms=c.norms.cpu().numpy(), ip_xo=c.ip_xo.cpu().numpy(),
+                   rotation=c.rotation.cpu().numpy(),
+                   center=c.center.cpu().numpy(), dim=c.dim)
+    return out
+
+
+def sharded_from_numpy(offsets, n_total: int, sizes, vectors, neighbors,
+                       medoid, kind: str = "delta_emg", delta: float = 0.0,
+                       codes=None, norms=None, ip_xo=None, rotation=None,
+                       center=None, dim: Optional[int] = None,
+                       device="cuda") -> ShardedIndex:
+    """The port's ``ShardedIndex`` from a reference one: every array leaf
+    has a leading dim S (``medoid`` is [S]); slot ``s`` is
+    ``index_from_numpy`` of the leaves' row ``s``.  ``sizes=None`` keeps
+    every row real, as in the reference."""
+    rq = codes is not None
+
+    def row(x, s):
+        return None if x is None else np.asarray(x)[s]
+
+    slots = tuple(
+        index_from_numpy(row(vectors, s), row(neighbors, s), row(medoid, s),
+                         kind=kind, delta=delta, codes=row(codes, s),
+                         norms=row(norms, s), ip_xo=row(ip_xo, s),
+                         rotation=row(rotation, s), center=row(center, s),
+                         dim=dim if rq else None, device=device)
+        for s in range(len(np.asarray(offsets))))
+    return ShardedIndex(
+        slots=slots, offsets=tuple(int(o) for o in np.asarray(offsets)),
+        n_total=int(n_total),
+        sizes=None if sizes is None
+        else tuple(int(x) for x in np.asarray(sizes)))
 
 
 def _tensor(x, dev) -> torch.Tensor:

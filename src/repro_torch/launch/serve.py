@@ -15,8 +15,12 @@ bound any response was served under.  ``--metrics`` attaches the
 observability layer and prints Prometheus-text and JSON snapshots after
 serving; ``--metrics-every S`` also prints a one-line stderr summary at
 most every S seconds while draining (implies ``--metrics``).
-``--shards`` belongs to the sharded index, not yet ported, and is refused
-with a message.
+``--shards N`` builds a sharded δ-EMQG (N contiguous shards, each its own
+index, all on ``--device``: one card holds every shard) and serves the
+stream through ``ShardedResilientAnnServer`` in three stages;
+``--kill-shards`` kills shards after the first, ``--auto-repair`` rebuilds
+them from a ``ShardVectorStore`` (``--store-dir``, ``--repair-budget``),
+and the recall, the coverage trajectory and the repair counts are printed.
 """
 
 from __future__ import annotations
@@ -80,31 +84,48 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device for the index and the search "
                          "(default cuda; cpu runs the plain versions)")
-    ap.add_argument("--shards", type=int, default=0, help="not ported yet")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="serve a sharded δ-EMQG of N shards, every shard "
+                         "on --device (0 = single-node)")
+    ap.add_argument("--kill-shards", default="",
+                    help="comma-separated shard ids killed after the first "
+                         "third of the stream (sharded mode)")
+    ap.add_argument("--auto-repair", action="store_true",
+                    help="self-heal killed shards: rebuild from a durable "
+                         "ShardVectorStore, verify, atomically install "
+                         "(sharded mode)")
+    ap.add_argument("--repair-budget", type=int, default=1,
+                    help="max repair attempts per sweep (--auto-repair)")
+    ap.add_argument("--store-dir", default=None,
+                    help="ShardVectorStore directory (--auto-repair; "
+                         "default: a temp dir created for the run)")
     args = ap.parse_args(argv)
-    if args.shards:
-        ap.error("--shards is not ported to PyTorch yet (the sharded index, "
-                 "ROADMAP A.6); run `python -m repro.launch.serve` for it")
+    kill = [int(x) for x in args.kill_shards.split(",") if x.strip()]
+    if args.shards < 0 or (not args.shards and (kill or args.auto_repair)):
+        ap.error("--kill-shards and --auto-repair need --shards N > 0")
+    if any(not 0 <= s < args.shards for s in kill):
+        ap.error(f"--kill-shards {kill}: shard ids run 0..{args.shards - 1}")
 
     # full float32 matrix products (no TF32), as the JAX package computes
     torch.backends.cuda.matmul.allow_tf32 = False
     registry = tracer = summary = None
     if args.metrics or args.metrics_every > 0:
-        registry = declare_serve_metrics(MetricsRegistry())
+        registry = declare_serve_metrics(MetricsRegistry(),
+                                         n_shards=max(args.shards, 1))
         tracer = Tracer()
         summary = PeriodicSummary(registry, args.metrics_every)
 
     if resolve_device(args.device).type == "cuda":
         # compile every kernel now, so that no nvcc runs in the timed parts
         _build.build_all()
+    if args.shards:
+        return _serve_sharded(args, kill, registry, tracer)
     print(f"[serve] building δ-EMQG over n={args.n} d={args.dim} on "
           f"{args.device} …")
     base = clustered_vectors(args.n, args.dim, 48, seed=0)
     t0 = time.perf_counter()
-    idx = build_emqg(base, BuildParams(
-        max_degree=args.max_degree, beam_width=args.beam, delta=args.delta,
-        t=args.beam // 2, iters=2, block=1024, align_degree=True),
-        metrics=registry, device=args.device)
+    idx = build_emqg(base, _build_params(args), metrics=registry,
+                     device=args.device)
     print(f"[serve] built in {time.perf_counter() - t0:.1f}s "
           f"(mean degree {float(idx.graph.degrees().float().mean()):.1f})")
 
@@ -176,6 +197,90 @@ def main(argv=None) -> int:
           f"{srv.stats.n_batches} batches; recall@{args.k}={rec:.4f}; "
           f"QPS={srv.stats.qps:.1f} ({idx.device}); "
           f"p_max_latency={srv.stats.max_latency_s * 1e3:.1f} ms")
+    _dump_metrics(registry, tracer)
+    return 0
+
+
+def _build_params(args) -> BuildParams:
+    return BuildParams(
+        max_degree=args.max_degree, beam_width=args.beam, delta=args.delta,
+        t=args.beam // 2, iters=2, block=1024, align_degree=True)
+
+
+def _serve_sharded(args, kill: list, registry, tracer) -> int:
+    """Sharded serving with mid-stream shard kills and optional self-repair
+    — the CLI face of ``core.repair`` + ``ShardedResilientAnnServer``.
+
+    The stream runs in three stages: a healthy third, then ``--kill-shards``
+    lands, then the rest; with ``--auto-repair`` the repair controller
+    rebuilds the killed shards from the vector store before the next batch
+    dispatches, so coverage returns to 1.0 without an operator call — when
+    the rebuild passes the reference's audit gate, which a shard whose
+    build leaves nodes cut off does not (ROADMAP C.8)."""
+    import tempfile
+
+    from ..core.distributed import build_sharded
+    from ..core.repair import RepairConfig, ShardVectorStore
+    from ..serve import ShardedResilientAnnServer
+
+    bp = _build_params(args)
+    print(f"[serve] building sharded δ-EMQG: n={args.n} d={args.dim} "
+          f"S={args.shards} on {args.device} …")
+    base = clustered_vectors(args.n, args.dim, 48, seed=0)
+    t0 = time.perf_counter()
+    sidx = build_sharded(base, args.shards, bp, quantized=True, seed=0,
+                         device=args.device)
+    print(f"[serve] built in {time.perf_counter() - t0:.1f}s")
+
+    store_dir = None
+    if args.auto_repair:
+        store_dir = args.store_dir or tempfile.mkdtemp(prefix="shard_store_")
+        ShardVectorStore.create(store_dir, base, args.shards, bp,
+                                quantized=True, seed=0)
+        print(f"[serve] vector store at {store_dir}")
+
+    queries = clustered_vectors(args.queries, args.dim, 48, seed=1)
+    _, gt_i = brute_force_knn(
+        queries, torch.as_tensor(base, device=sidx.device), args.k)
+    gt_i = gt_i.cpu().numpy()
+    params = SearchParams(k=args.k, l0=args.k, l_max=256, alpha=args.alpha,
+                          adaptive=True, max_hops=2048)
+    srv = ShardedResilientAnnServer(
+        sidx, params, quantized=True, max_batch=128, buckets=(32, 128),
+        metrics=registry, tracer=tracer, device=args.device,
+        auto_repair=RepairConfig(budget_per_sweep=args.repair_budget)
+        if args.auto_repair else None, vector_store=store_dir)
+
+    stages = np.array_split(np.arange(len(queries)), 3)
+    responses, coverage_traj = [], []
+    for stage, idxs in enumerate(stages):
+        if stage == 1 and kill:
+            for s in kill:
+                srv.kill_shard(s)
+            print(f"[serve] killed shards {kill} "
+                  f"(coverage now {srv.coverage:.2f})")
+        if idxs.size:
+            srv.submit_many(queries[idxs])
+            responses.extend(srv.drain())
+        coverage_traj.append(srv.coverage)
+    served = [(i, r) for i, r in enumerate(responses) if r.ok]
+    rec = np.mean([
+        len(set(r.ids.tolist()) & set(gt_i[i].tolist())) / args.k
+        for i, r in served]) if served else 0.0
+    worst_cov = min((r.coverage for _, r in served), default=1.0)
+    print(f"[serve] {len(served)} served / {len(responses)} submitted; "
+          f"recall@{args.k}={rec:.4f}; QPS={srv.stats.qps:.1f} "
+          f"({sidx.device}); coverage trajectory "
+          f"{[round(c, 2) for c in coverage_traj]} (worst response "
+          f"{worst_cov:.2f})")
+    if srv.repair is not None:
+        print(f"[serve] repair: {srv.repair.n_repaired} repaired, "
+              f"{srv.repair.n_failed} failed attempts, "
+              f"{srv.repair.n_sweeps} sweeps; final coverage "
+              f"{srv.coverage:.2f}")
+    elif kill:
+        print(f"[serve] no auto-repair: coverage stays {srv.coverage:.2f} "
+              "until an operator rebuilds")
     _dump_metrics(registry, tracer)
     return 0
 

@@ -7,6 +7,7 @@ from .resilience import (  # noqa: F401
     ResilientAnnServer,
     Response,
     SearchFailure,
+    ShardedResilientAnnServer,
     default_tiers,
     validate_query,
 )

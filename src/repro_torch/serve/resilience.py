@@ -1,10 +1,11 @@
 """Resilience layer for ANN serving: admission control, per-request
 deadlines, an error-bounded degradation ladder, and failure containment.
 
-Counterpart of the single-node part of ``repro.serve.resilience``: the
-same layers, statuses, counters and transition events, in front of the
-port's ``AnnServer``.  The sharded server comes with the sharded index
-(ROADMAP A.6).
+Counterpart of ``repro.serve.resilience``: the same layers, statuses,
+counters and transition events, in front of the port's ``AnnServer``;
+``ShardedResilientAnnServer`` fronts a ``core.distributed.ShardedIndex``
+(the two exact merges as its breaker chain, shard death reported per
+response, self-repair from a ``core.repair.ShardVectorStore``).
 
 δ-EMG makes *principled* degradation possible.  A recall-tuned index that
 shrinks its search budget under load returns arbitrarily bad results; a
@@ -68,7 +69,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core import EMQGIndex, SearchParams
+from ..core import EMQGIndex, SearchParams, SearchResult
 from ..obs import Timer
 
 from .ann_server import AnnServer, _Request
@@ -158,12 +159,13 @@ class DegradationLadder:
 class _Tier:
     backend: str
     beam_width: Optional[int] = None    # pin W for this tier (None → ladder's)
+    engine: str = "beam"                # "sharded": backend names the merge
     failures: int = 0
     open_until: float = 0.0
 
     @property
     def name(self) -> str:
-        base = f"beam/{self.backend}"
+        base = f"{self.engine}/{self.backend}"
         return base if self.beam_width is None else f"{base}/w{self.beam_width}"
 
 
@@ -518,3 +520,156 @@ class ResilientAnnServer(AnnServer):
                 tr.end_span(bspan, size=len(live), tier=tier_name)
         out.sort(key=lambda r: r.seq)
         return out
+
+
+# ---------------------------------------------------------------------------
+# Sharded resilient serving (distributed fault tolerance).
+# ---------------------------------------------------------------------------
+
+
+class ShardedResilientAnnServer(ResilientAnnServer):
+    """The resilient server fronting a ``ShardedIndex``.
+
+    The search seam routes to a registry-masked single-controller sharded
+    search (``core.distributed.FaultTolerantShardedSearch``: each live
+    slot's kernel search, then the exact merge).  The breaker chain is the
+    two merge strategies, ``sharded/all_gather`` and ``sharded/ring``: a
+    merge-time fault opens the primary merge tier and the other,
+    equally exact merge serves.  Both tiers run the same per-shard search
+    on ``backend`` (the kernels on the card), so a fallback never lets the
+    plain version answer for a kernel.  Shard death is NOT a breaker
+    event: the registry masks the dead shard out and serving continues at
+    reduced coverage, reported per response (``coverage``,
+    ``max_missed``).
+
+    ``kill_shard`` / ``revive_shard`` are the operator surface; with
+    ``n_replicas > 1`` a killed primary fails over to its replica before
+    coverage degrades.  ``health_deadline_s`` adds a
+    ``DeadlineHealthChecker`` fed by ``heartbeat``.
+
+    **Self-healing** (``auto_repair=``): with a durable ``vector_store``
+    (a ``core.repair.ShardVectorStore`` or its directory path), a
+    ``RepairController`` is swept once per dispatch — after the health
+    check, before the batch routes — so a dead slot is rebuilt from
+    source, verified, atomically installed and ``mark_live``-d without an
+    operator call.  Pass ``True`` for the default ``RepairConfig`` or a
+    ``RepairConfig``.
+    """
+
+    def __init__(self, sidx, params: SearchParams, *,
+                 merge: str = "all_gather", quantized: bool = False,
+                 n_replicas: int = 1,
+                 config: ResilienceConfig = ResilienceConfig(),
+                 clock=time.monotonic, health_deadline_s=None,
+                 auto_repair=None, vector_store=None,
+                 repair_fault_hook=None, backend: str = "auto", **kw):
+        from ..core.distributed import (DeadlineHealthChecker,
+                                        FaultTolerantShardedSearch,
+                                        ShardHealthRegistry)
+        super().__init__(sidx, params, config=config, clock=clock,
+                         backend=backend, **kw)
+        self.quantized = quantized          # a ShardedIndex defeats isinstance
+        self.registry = ShardHealthRegistry(sidx.n_shards // n_replicas,
+                                            n_replicas, clock=clock)
+        # replicas heartbeat via ``heartbeat()``; a stale one is
+        # mark_dead-ed before the next batch dispatches (None → explicit
+        # kill_shard / revive_shard only)
+        self.health_checker = None if health_deadline_s is None else \
+            DeadlineHealthChecker(self.registry, health_deadline_s,
+                                  metrics=self.metrics)
+        merges = [merge, "ring" if merge == "all_gather" else "all_gather"]
+        self._ft = {
+            m: FaultTolerantShardedSearch(
+                sidx, merge=m, quantized=quantized, n_replicas=n_replicas,
+                registry=self.registry, backend=backend)
+            for m in merges
+        }
+        self.breaker = CircuitBreaker(
+            [(m, None, "sharded") for m in merges],
+            threshold=config.breaker_threshold,
+            cooldown_s=config.breaker_cooldown_s, clock=clock)
+        self.repair = None
+        if auto_repair:
+            from ..core.repair import (RepairConfig, RepairController,
+                                       ShardVectorStore)
+            if vector_store is None:
+                raise ValueError("auto_repair requires vector_store (a "
+                                 "ShardVectorStore or its directory path)")
+            if isinstance(vector_store, str):
+                vector_store = ShardVectorStore(vector_store)
+            self.repair = RepairController(
+                vector_store, self.registry,
+                get_sidx=lambda: self.index,
+                set_sidx=self._install_sidx,
+                config=auto_repair if isinstance(auto_repair, RepairConfig)
+                else None,
+                clock=clock, metrics=self.metrics,
+                fault_hook=repair_fault_hook)
+
+    def _install_sidx(self, sidx) -> None:
+        """Atomic index swap: the new index replaces the old for every
+        searcher at once (the next batch sees one consistent index)."""
+        self.index = sidx
+        for ft in self._ft.values():
+            ft.sidx = sidx
+
+    # -- operator surface ----------------------------------------------------
+    def kill_shard(self, shard: int, replica: int = 0) -> None:
+        self.registry.mark_dead(shard, replica)
+
+    def revive_shard(self, shard: int, replica: int = 0) -> None:
+        self.registry.mark_live(shard, replica)
+
+    def heartbeat(self, shard: int, replica: int = 0) -> None:
+        """Liveness signal from a shard's host, consumed by the deadline
+        health checker."""
+        self.registry.heartbeat(shard, replica)
+
+    @property
+    def coverage(self) -> float:
+        return self.registry.coverage()
+
+    # -- search seam ---------------------------------------------------------
+    def _search(self, queries, params: Optional[SearchParams] = None,
+                backend: Optional[str] = None):
+        """One batch: health check, repair sweep, then the sharded search
+        with the merge ``backend`` names (the breaker's tier)."""
+        params = params if params is not None else self.params
+        merge = backend if backend in self._ft else next(iter(self._ft))
+        if self.health_checker is not None:
+            self.health_checker.check()     # stale heartbeats → mark_dead
+        if self.repair is not None:
+            self.repair.sweep()             # dead slots → rebuild + install
+        tr = self.tracer
+        if tr is None:
+            r = self._ft[merge](queries, params)
+        else:
+            # one child per logical shard under a fanout parent (itself a
+            # child of the batch's device_execute span).  The single
+            # controller searches the slots one after another, so each
+            # live shard's child spans its own slot's search; a dead
+            # shard's child is empty and carries live=False
+            fanout = tr.start_span("serve.shard_fanout", merge=merge)
+            R = self.registry.n_replicas
+            for s in self.registry.dead_shards():
+                tr.end_span(tr.start_span("shard", parent=fanout, shard=s,
+                                          live=False))
+            r = self._ft[merge](
+                queries, params,
+                around=lambda slot: tr.span("shard", parent=fanout,
+                                            shard=slot // R,
+                                            replica=slot % R, live=True))
+            tr.end_span(fanout, coverage=r.coverage,
+                        max_missed=r.max_missed)
+        if self.metrics is not None:
+            self.registry.publish(self.metrics)
+        self._last_coverage = r.coverage
+        self._last_max_missed = r.max_missed
+        B = r.ids.shape[0]
+        zeros = torch.zeros((B,), dtype=torch.int32, device=r.ids.device)
+        return SearchResult(ids=r.ids, dists=r.dists, n_dist_comps=zeros,
+                            n_approx_comps=zeros, n_hops=zeros,
+                            final_l=zeros,
+                            saturated=torch.zeros((B,), dtype=torch.bool,
+                                                  device=r.ids.device),
+                            n_encounters=zeros)

@@ -23,8 +23,15 @@ fault is deterministic and seedable:
   checksum-stale manifest) — the shape a crash during a *later* append
   leaves behind.
 
-The shard-death and shard-repair faults come with the sharded index
-(ROADMAP A.6).  Nothing here is imported by production code paths —
+* **Shard deaths** — ``ShardDeathPlan`` kills / revives (shard, replica)
+  slots before chosen calls; ``inject_shard_deaths`` applies it around a
+  ``ShardedResilientAnnServer``'s ``_search`` seam.
+* **Shard repair faults** — ``RepairFaultPlan`` builds a
+  ``RepairController``'s ``fault_hook``: contained ``RepairFault``s at
+  ``rebuild`` and ``SimulatedCrash`` at an install point;
+  ``corrupt_shard_source`` corrupts a ``ShardVectorStore`` shard post-hoc.
+
+Nothing here is imported by production code paths —
 faults flow only test → harness → server seam.
 """
 
@@ -261,6 +268,142 @@ def torn_wal_record(wal_dir: str, seq: int, mode: str = "truncate") -> None:
             arr.flat[0] += 1.0
         else:
             arr.flat[0] ^= 1
+        np.savez(npz, **flat)
+    else:
+        raise ValueError(f"unknown mode: {mode!r}")
+
+
+# ---------------------------------------------------------------------------
+# Shard death schedules (sharded serving).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ShardDeathPlan:
+    """Deterministic shard liveness schedule, applied before each call.
+
+    ``kill[(shard, replica)] = i`` kills that slot before the i-th call;
+    ``revive[(shard, replica)] = j`` revives it before the j-th call.
+    Drive it manually (``apply(registry, call_idx)``) or let
+    ``inject_shard_deaths`` hook a ``ShardedResilientAnnServer``.
+    """
+
+    kill: dict = dataclasses.field(default_factory=dict)
+    revive: dict = dataclasses.field(default_factory=dict)
+
+    def apply(self, registry, call_idx: int) -> None:
+        for (s, r), i in self.kill.items():
+            if call_idx >= i:
+                registry.mark_dead(s, r)
+        for (s, r), j in self.revive.items():
+            if call_idx >= j:
+                registry.mark_live(s, r)
+
+
+class inject_shard_deaths:
+    """Context manager applying a ``ShardDeathPlan`` around a sharded
+    server's ``_search`` seam (the wrapping of ``inject_search_faults``)."""
+
+    def __init__(self, server, plan: ShardDeathPlan):
+        self.server = server
+        self.plan = plan
+        self.n_calls = 0
+        self._orig = None
+
+    def __enter__(self):
+        self._orig = self.server._search
+
+        def wrapped(queries, params=None, backend=None):
+            self.plan.apply(self.server.registry, self.n_calls)
+            self.n_calls += 1
+            return self._orig(queries, params=params, backend=backend)
+
+        self.server._search = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.server._search = self._orig
+        return False
+
+
+# ---------------------------------------------------------------------------
+# Shard repair faults (core.repair).
+# ---------------------------------------------------------------------------
+
+
+class RepairFault(RuntimeError):
+    """Injected failure inside the repair controller's contained phase."""
+
+
+_REPAIR_CRASH_POINTS = ("before_install", "mid_install", "after_install")
+
+
+@dataclasses.dataclass
+class RepairFaultPlan:
+    """Deterministic schedule for a ``RepairController``'s ``fault_hook``.
+
+    Two failure classes, matching the controller's two phases:
+
+    * **contained failures** — ``fail_rebuilds`` raises ``RepairFault`` on
+      the first N visits to the ``rebuild`` point (``fail_rebuild_visits``
+      adds specific 0-based visit indices); the controller must catch
+      these, back off, and retry — coverage stays down but never regresses.
+    * **install crashes** — ``crash_point`` (one of ``before_install`` /
+      ``mid_install`` / ``after_install``) raises ``SimulatedCrash`` on its
+      ``crash_on_visit``-th visit: the process dying in the UNcontained
+      phase.  Crash points in the contained phase are rejected
+      (``ValueError``): the controller would swallow them as an ordinary
+      repair failure, silently testing nothing.
+
+    ``hook()`` builds the ``fault_hook`` and tracks per-point visit counts
+    in ``visits``.
+    """
+
+    fail_rebuilds: int = 0
+    fail_rebuild_visits: tuple[int, ...] = ()
+    crash_point: Optional[str] = None
+    crash_on_visit: int = 0
+
+    def __post_init__(self):
+        if (self.crash_point is not None
+                and self.crash_point not in _REPAIR_CRASH_POINTS):
+            raise ValueError(
+                f"crash_point must be one of {_REPAIR_CRASH_POINTS} (the "
+                f"uncontained install phase), got {self.crash_point!r}")
+
+    def hook(self):
+        visits: dict[str, int] = {}
+
+        def fault_hook(point: str) -> None:
+            v = visits.get(point, 0)
+            visits[point] = v + 1
+            if point == "rebuild" and (v < self.fail_rebuilds
+                                       or v in self.fail_rebuild_visits):
+                raise RepairFault(f"injected rebuild failure (visit {v})")
+            if point == self.crash_point and v == self.crash_on_visit:
+                raise SimulatedCrash(f"crash at {point} (visit {v})")
+
+        fault_hook.visits = visits
+        return fault_hook
+
+
+def corrupt_shard_source(store_dir: str, shard: int,
+                         mode: str = "checksum") -> None:
+    """Corrupt one shard's durable vector source post-hoc:
+    ``"truncate"`` halves the npz, ``"checksum"`` perturbs one element
+    while the manifest keeps the stale CRC.  Either way
+    ``ShardVectorStore.load_shard`` must raise ``ShardSourceCorruptError``
+    and the repair must fail *cleanly* — no install, no mark_live."""
+    npz = os.path.join(store_dir, f"shard_{shard:04d}.npz")
+    if mode == "truncate":
+        with open(npz, "rb") as f:
+            data = f.read()
+        with open(npz, "wb") as f:
+            f.write(data[: max(1, len(data) // 2)])
+    elif mode == "checksum":
+        with np.load(npz) as z:
+            flat = {k: z[k].copy() for k in z.files}
+        flat["rows"].flat[0] += 1.0
         np.savez(npz, **flat)
     else:
         raise ValueError(f"unknown mode: {mode!r}")

@@ -27,7 +27,11 @@ on one tile against the same products in f32 (rtol/atol 1e-5).  Live
 updates on the card launch the L2 kernels and recover from their journal
 to the same bits; the resilient server at rung 0 gives ``AnnServer``'s
 results exactly, with no retry and no fallback, and a failing kernel tier
-fails its batch instead of falling back to the plain version.
+fails its batch instead of falling back to the plain version.  The
+sharded index on the card gives its plain path's ids, a repaired slot is
+bitwise the slot the sharded build made, and the SPMD transport (two
+ranks on the one card, gloo between them) equals the single-controller
+search.
 """
 
 import dataclasses
@@ -53,9 +57,15 @@ from repro_torch.models import common
 from repro_torch.models import transformer as tf
 from repro_torch.core.updates import JournaledLiveIndex, as_live, recover
 from repro_torch.core.verify import audit_live
+from repro_torch.core.distributed import (ShardHealthRegistry, build_sharded,
+                                          host_reference_merge,
+                                          make_sharded_search, spmd_search)
+from repro_torch.core.repair import RepairController, ShardVectorStore
 from repro_torch.serve import AnnServer, ResilienceConfig, ResilientAnnServer
+from repro_torch.serve import ShardedResilientAnnServer
 from repro_torch.serve import generate
-from repro_torch.testing import FaultPlan, inject_search_faults
+from repro_torch.testing import (FaultPlan, indexes_equal,
+                                 inject_search_faults)
 
 # the build's [block, M] at d = 128 and MIPS's ragged d + 1 = 129, cut in B
 L2_SHAPES = [(2, 16, 24), (4, 32, 128), (1, 7, 65), (8, 24, 128), (2, 24, 129)]
@@ -687,6 +697,87 @@ def test_resilient_server_on_card_equals_ann_server(card_emqg):
     assert all(r.status == "failed" and "KernelFault" in r.error for r in rs)
     assert [b for b, _ in inj.tier_log] == ["auto"] * 3
     assert srv.stats.n_fallback == 0 and srv.stats.n_retried == 2
+
+
+@pytest.fixture
+def card_sharded(cuda):
+    bp = BuildParams(max_degree=12, beam_width=24, t=12, iters=2, block=512,
+                     align_degree=True)
+    base = clustered_vectors(3000, 32, 16, seed=0)
+    return base, bp, build_sharded(base, 4, bp, quantized=True, seed=0,
+                                   device=cuda)
+
+
+@pytest.mark.cuda
+def test_sharded_search_on_card_matches_plain_path(cuda, card_sharded):
+    """Each shard's kernel search merged on the card: both merges equal the
+    host merge, the ids equal the plain path's (``backend="jnp"``) on ≥ 99%
+    of queries, and the sharded server's breaker holds the two merge tiers
+    alone."""
+    base, _, sidx = card_sharded
+    p = SearchParams(k=10, l0=10, l_max=64, alpha=1.2, adaptive=True,
+                     max_hops=512)
+    q = clustered_vectors(64, 32, 16, seed=1)
+    before = bitdot_ops.LAUNCHES["fused_estimate"]
+    got = {m: make_sharded_search(m, quantized=True)(sidx, q, p)
+           for m in ("all_gather", "ring")}
+    assert bitdot_ops.LAUNCHES["fused_estimate"] > before
+    ref_i, ref_d = host_reference_merge(sidx, ShardHealthRegistry(4), q, p,
+                                        quantized=True)
+    for ids, d in got.values():
+        assert np.array_equal(ids.cpu().numpy(), ref_i)
+        np.testing.assert_allclose(d.cpu().numpy(), ref_d, rtol=1e-4)
+    plain, _ = make_sharded_search(quantized=True, backend="jnp")(sidx, q, p)
+    ids = got["all_gather"][0]
+    assert (ids == plain).all(1).float().mean().item() >= 0.99
+    srv = ShardedResilientAnnServer(sidx, p, quantized=True, device=cuda)
+    assert [t.name for t in srv.breaker.tiers] == \
+        ["sharded/all_gather", "sharded/ring"]
+
+
+@pytest.mark.cuda
+def test_repaired_slot_on_card_is_the_original(cuda, tmp_path):
+    """The store's rebuild on the card is bitwise the slot the sharded build
+    made, and the repair controller installs it (the reference's
+    audit-clean parameters)."""
+    X = np.random.default_rng(0).standard_normal((512, 8)).astype(np.float32)
+    bp = BuildParams(max_degree=12, beam_width=24, t=10, iters=3, block=128,
+                     delta=0.5)
+    sidx = build_sharded(X, 4, bp, seed=7, device=cuda)
+    store = ShardVectorStore.create(str(tmp_path), X, 4, params=bp, seed=7)
+    for s in range(4):
+        assert indexes_equal(store.build_shard(s, device=cuda), sidx.slots[s])
+    holder = {"sidx": sidx}
+    reg = ShardHealthRegistry(4)
+    ctl = RepairController(store, reg, get_sidx=lambda: holder["sidx"],
+                           set_sidx=lambda x: holder.__setitem__("sidx", x))
+    reg.mark_dead(2)
+    before = l2ops.LAUNCHES["batched_l2"]
+    out = ctl.sweep()
+    assert [o.status for o in out] == ["succeeded"], out
+    assert l2ops.LAUNCHES["batched_l2"] > before
+    assert holder["sidx"].slots[2] is not sidx.slots[2]
+    assert indexes_equal(holder["sidx"].slots[2], sidx.slots[2])
+    assert reg.coverage() == 1.0
+
+
+@pytest.mark.cuda
+def test_spmd_gloo_on_card_equals_single_controller(card_sharded):
+    """Two ranks on the one card, gloo over host copies of the [B, k]
+    lists, each rank's search on the card: both merges equal the
+    single-controller search on every rank."""
+    base, bp, _ = card_sharded
+    _build.build_all()
+    sidx = build_sharded(base, 2, bp, quantized=True, seed=0, device="cuda")
+    p = SearchParams(k=10, l0=10, l_max=64, alpha=1.2, adaptive=True,
+                     max_hops=512)
+    q = clustered_vectors(32, 32, 16, seed=1)
+    ranks = spmd_search(sidx, q, p, quantized=True, timeout_s=300)
+    for merge in ("all_gather", "ring"):
+        ids, d = make_sharded_search(merge, quantized=True)(sidx, q, p)
+        for r in ranks:
+            assert np.array_equal(r[merge][0], ids.cpu().numpy())
+            assert np.array_equal(r[merge][1], d.cpu().numpy())
 
 
 @pytest.mark.cuda

@@ -30,7 +30,10 @@ from repro_torch.launch import serve as port_serve
 from repro_torch.obs import MetricsRegistry
 from repro_torch.checkpoint import restore_latest
 from repro_torch.core.updates import JournaledLiveIndex, as_live, recover
-from repro_torch.serve import AnnServer, ResilientAnnServer
+from repro_torch.core.distributed import build_sharded
+from repro_torch.core.repair import ShardVectorStore
+from repro_torch.serve import (AnnServer, ResilientAnnServer,
+                               ShardedResilientAnnServer)
 
 from conftest import gmm
 from test_torch_search import to_port
@@ -102,8 +105,13 @@ def test_launch_serve_runs_on_cpu(capsys):
     assert "recall@10=" in out and "search_hops_total" in out
 
 
-@pytest.mark.parametrize("flag", [["--shards", "2"]])
+@pytest.mark.parametrize("flag", [["--kill-shards", "1"],
+                                  ["--auto-repair"],
+                                  ["--shards", "2", "--kill-shards", "2"]])
 def test_launch_serve_refuses_unported_modes(flag):
+    """Every mode of the reference CLI is ported (``--shards`` since the
+    sharded index); what is refused is a sharded flag without ``--shards``
+    or a shard id out of range."""
     with pytest.raises(SystemExit) as exc:
         port_serve.main(["--device", "cpu", *flag])
     assert exc.value.code == 2
@@ -165,6 +173,21 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         restore_latest("no-such-directory", {"x": np.zeros(1)})
     with pytest.raises(RuntimeError, match="cuda"):
         recover(_journal(g))
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_sharded(base, 2, BuildParams(max_degree=4, beam_width=8,
+                                           iters=1))
+    sidx = build_sharded(base, 2, BuildParams(max_degree=4, beam_width=8,
+                                              iters=1), device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ShardedResilientAnnServer(sidx, SearchParams())
+    import tempfile
+
+    store = ShardVectorStore.create(tempfile.mkdtemp(prefix="store_"), base,
+                                    2, BuildParams(max_degree=4, beam_width=8,
+                                                   iters=1))
+    with pytest.raises(RuntimeError, match="cuda"):
+        store.build_shard(0)
+    assert store.build_shard(0, device="cpu").device.type == "cpu"
 
 
 def _imported_modules(path: pathlib.Path):
