@@ -171,7 +171,25 @@ non-zero and prints no result line):
                8 prompts of 128 tokens, greedy, 32 new tokens, with
                ``decode_step``'s logits after the prompt against
                ``prefill``'s.  Controls with attention or the decode cache
-               broken on purpose must break the logit bound.
+               broken on purpose must break the logit bound;
+14. moe     — moonshot-v1-16b-a3b at its published widths and 48 layers in
+               bf16 (28.3 B parameters, 56.7 GB, from a seeded generator):
+               first, before any weight, the flash row at hd = 128 (q/kv
+               [1, 32768, 16, 128], and the windowed GQA and ragged shapes
+               at hd = 128) as in the lm phase, reported at the path
+               ``moe_prefill``; ``transformer.prefill`` with the kernel
+               against the plain attention at S = 4,096 (last-position
+               logits within ``MOE_LOGIT_TOL``, every layer windowed on
+               purpose must break it; no f32-model reading: 113 GB);
+               the prefill of one 32,768-token prompt (``prefill_32k`` with
+               its batch cut from 32 to 1), 48 kernel launches and no input
+               copied, the mean dropped share, and a ``[profile]`` line
+               (busy share; flash, GEMM and dispatch shares);
+               ``decode_step`` over 8 prompts of 32 tokens (cut from 128)
+               against a prefill at a capacity that drops nothing, with
+               the two cache controls; greedy ``generate`` for 8 × (128 +
+               32), its first token among the drop-free prefill's top
+               logits; a ``[moe-summary]`` line.
 
 Every kernel's launch count is set to 0 just before the path that runs it
 and read just after; a kernel that path never launched fails the run.  The
@@ -232,6 +250,20 @@ LM_CONTROL_WINDOWS = (1, LM_CHECK_SEQ // 2, LM_CHECK_SEQ - 64)
 # checked against it in every run; each path's distance to the same model
 # in f32 is printed beside.
 LM_LOGIT_TOL = 0.2
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_DECODE_PROMPT = 32         # the decode = prefill check: cut from 128
+# The MoE model's logits bound (kernel vs plain prefill at S = 4,096,
+# decode vs a prefill that drops nothing).  Through 48 layers a bf16
+# rounding in attention can flip a near-tied expert of a token (a sixth of
+# its FFN output) or move a capacity drop, so the sound readings sit above
+# smollm's: on an H100 they read 0.352 and 0.535, the subtlest control
+# (every layer's window 64 keys short of the last row's reach) 1.19 and
+# the decode controls 3.75 and 6.05.  The bound sits near the geometric
+# mean of 0.535 and 1.19.
+MOE_LOGIT_TOL = 0.8
+# kernel names of the MoE dispatch and combine (sorts, searchsorted,
+# scatters and gathers) in a profile of the prefill
+DISPATCH_TAGS = ("sort", "scatter", "gather", "searchsorted")
 # The bf16 flash kernel at the prefill's shape may take at most this many
 # times SDPA's time in the same run (the tensor-core redesign's target)
 FLASH_MAX_SDPA_RATIO = 4.0
@@ -390,7 +422,8 @@ REPORTED = (("gather_l2_tiled", "drain"), ("gather_l2_tiled", "build"),
             ("bitdot", "probe"), ("fused_estimate", "drain"),
             ("batched_l2", "build"), ("batched_l2", "live"),
             ("batched_l2", "exact_build"),
-            ("batched_l2", "mips_build"), ("flash_attention", "lm_prefill"))
+            ("batched_l2", "mips_build"), ("flash_attention", "lm_prefill"),
+            ("flash_attention", "moe_prefill"))
 
 
 def batched_cases() -> tuple:
@@ -1142,14 +1175,17 @@ def mips_phase(torch, card: str, counts: dict) -> None:
           f"{json.dumps(counts['mips_build'])} ({card})")
 
 
-def flash_rows(torch, card: str, cfg, S: int) -> dict:
-    """flash_attention at the prefill's shape against the plain blockwise
-    attention (the full matrix would be 39 GB of scores), timed beside its
-    plain version and SDPA; then, untimed, a windowed GQA shape and an S
-    that is no multiple of the 64-row tile against the full-matrix
-    version.  Each is held to ``ref.err_ratio``'s bf16 bound against the
-    plain version in f32 on the same values; a control, the kernel with a
-    key tile cut from the last row (window S - 64), must break it."""
+def flash_rows(torch, card: str, cfg, S: int, path: str = "lm_prefill",
+               tag: str = "lm") -> dict:
+    """flash_attention at the prefill's shape (``cfg``'s heads and head_dim)
+    against the plain blockwise attention (the full matrix would be 39 GB
+    of scores at smollm's), timed beside its plain version and SDPA; then,
+    untimed, a windowed GQA shape and an S that is no multiple of the
+    64-row tile, at ``cfg``'s head_dim, against the full-matrix version.
+    Each is held to ``ref.err_ratio``'s bf16 bound against the plain
+    version in f32 on the same values; a control, the kernel with a key
+    tile cut from the last row (window S - 64), must break it.  The row
+    reports the kernel at ``path``."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -1177,22 +1213,22 @@ def flash_rows(torch, card: str, cfg, S: int) -> dict:
                     f"{control:.1f}")
             check(control > 1.0, f"the bf16 bound does not see a key tile "
                   f"cut from the last row ({what}): {control}")
-        print(f"[lm] flash_attention {what}: max error {err:.3g}, "
+        print(f"[{tag}] flash_attention {what}: max error {err:.3g}, "
               f"{ratio:.3f} of the bf16 bound{note}")
         check(bool(torch.isfinite(out).all()) and ratio <= 1.0,
               f"flash_attention {what} is {ratio} of the bf16 bound")
         return err
 
-    for n, H, KV, window in ((1000, 8, 2, 100), (4097, 9, 3, None)):
-        q, k, v = qkv(n, H, KV, 64)
-        G = H // KV
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    for n, Hs, KVs, window in ((1000, 8, 2, 100), (4097, 9, 3, None)):
+        q, k, v = qkv(n, Hs, KVs, hd)
+        G = Hs // KVs
         want = flash_ref.attention_ref(
             q.float(), k.float().repeat_interleave(G, 2),
             v.float().repeat_interleave(G, 2), window=window)
-        held(q, k, v, window, want, f"S={n} H={H} KV={KV} window={window} "
-             "against the full matrix")
+        held(q, k, v, window, want, f"S={n} H={Hs} KV={KVs} hd={hd} "
+             f"window={window} against the full matrix")
 
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q, k, v = qkv(S, H, KV, hd)
     want = common.flash_attention(q.float(), k.float(), v.float(),
                                   backend="jnp")
@@ -1218,11 +1254,11 @@ def flash_rows(torch, card: str, cfg, S: int) -> dict:
     row = dict(name="flash_attention", route="cuda",
                source="src/repro_torch/kernels/csrc/flash_attn_sm90.cu",
                replaces="src/repro/kernels/flashattn/flashattn.py:101",
-               path="lm_prefill", shape=f"q[1,{S},{H},{hd}] kv[1,{S},{KV},"
+               path=path, shape=f"q[1,{S},{H},{hd}] kv[1,{S},{KV},"
                f"{hd}] bf16 causal", max_abs_err=err, ms=ms,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                library_ms=library_ms)
-    print(f"[kernel] flash_attention {row['shape']} (lm_prefill): err "
+    print(f"[kernel] flash_attention {row['shape']} ({path}): err "
           f"{err:.3g} ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
           f"{bound_ms:.4f} ({bound_by}) library_ms (sdpa) {library_ms:.4f} "
           f"(sdpa against the kernel: max diff {lib_err:.3g}); "
@@ -1235,7 +1271,7 @@ def flash_rows(torch, card: str, cfg, S: int) -> dict:
           f"HGMMA instructions in its library; ptxas: {ptxas_report(hd)}")
     del q, k, v, out, lib
     torch.cuda.empty_cache()
-    return {("flash_attention", "lm_prefill"): row}
+    return {("flash_attention", path): row}
 
 
 def sass_count(op: str = "HGMMA") -> str:
@@ -1294,11 +1330,7 @@ def lm_phase(torch, card: str, counts: dict,
     dev = torch.device("cuda")
     params = tf.init(cfg, torch.Generator(device=dev).manual_seed(0),
                      device=dev)
-    n_params = sum(t.numel() for t in (params["embed"], params["unembed"],
-                                       params["ln_f"]))
-    n_params += sum(t.numel() for p in params["layers"] for t in
-                    [*(x for x in p.values() if torch.is_tensor(x)),
-                     *p["ffn"].values()])
+    n_params = _n_params(params)
     check(n_params == cfg.param_count(), f"{n_params} parameters, "
           f"{cfg.param_count()} expected")
     lm = make_markov_lm(cfg.vocab, seed=0)
@@ -1352,47 +1384,16 @@ def lm_phase(torch, card: str, counts: dict,
           f"{counts['lm_prefill']['flash_attention']}, input copies "
           f"{flash_ops.COPIES['flash_attention']}, peak memory "
           f"{peak_gb:.2f} GB ({card})")
-    row, avgs = _profiled(torch, lambda: tf.prefill(cfg, params, toks),
-                          "lm_prefill", out)
-    kernel_us = {e.key: _device_us(torch, e) for e in avgs}
-    total_us = sum(kernel_us.values())
-    row.update(seq=S, card=card,
-               flash_share=sum(us for k, us in kernel_us.items()
-                               if "flash_fwd_sm90" in k) / total_us,
-               gemm_share=sum(us for k, us in kernel_us.items()
-                              if any(t in k.lower() for t in GEMM_TAGS))
-               / total_us)
-    print(f"[profile] {json.dumps(row)}")
+    profile_prefill(torch, lambda: tf.prefill(cfg, params, toks),
+                    "lm_prefill", out, seq=S, card=card)
     del logits
 
     B, P = LM_GEN["batch"], LM_GEN["prompt"]
     prompts = torch.from_numpy(lm_batch(lm, B, P, step=2)[0]).to(dev)
     pre = tf.prefill(cfg, params, prompts)
 
-    def stepped(prompts, shift=0):
-        """Last logits of stepping prompts through decode_step from a cache
-        whose positions start at shift."""
-        cache = tf.init_cache(cfg, B, LM_GEN["max_seq"], device=dev)
-        cache["pos"] += shift
-        for t in range(prompts.shape[1]):
-            logits, cache = tf.decode_step(cfg, params, cache, prompts[:, t])
-        return logits
-
-    step_err = float((stepped(prompts) - pre).abs().max())
-    # controls: the cache one position off (slot 0 left empty but read),
-    # and the prompt's first token missing from the cache
-    step_controls = {
-        "pos off by one": float((stepped(prompts, 1) - pre).abs().max()),
-        "first token dropped": float((stepped(prompts[:, 1:]) - pre)
-                                     .abs().max())}
-    print(f"[lm] decode_step over {B} prompts of {P} against prefill: max "
-          f"diff {step_err:.4g} (bound {LM_LOGIT_TOL}); controls: " +
-          ", ".join(f"{c}: {d:.4g}" for c, d in step_controls.items()))
-    check(step_err <= LM_LOGIT_TOL, f"decode_step over the prompt and "
-          f"prefill differ by {step_err} > {LM_LOGIT_TOL}")
-    check(min(step_controls.values()) > LM_LOGIT_TOL, f"the logit bound "
-          f"{LM_LOGIT_TOL} does not see a broken decode cache: "
-          f"{step_controls}")
+    step_err, step_controls = decode_against_prefill(
+        torch, cfg, params, prompts, pre, LM_LOGIT_TOL, "lm")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = generate(cfg, params, prompts, max_new=LM_GEN["max_new"],
@@ -1423,6 +1424,211 @@ def lm_phase(torch, card: str, counts: dict,
     print(f"[lm] generate {B} × ({P} + {LM_GEN['max_new']}) greedy: "
           f"{gen_s:.2f} s, {B * steps / gen_s:.1f} decode tokens/s "
           f"({steps} decode steps of {B} rows) ({card})")
+    return rows, summary
+
+
+def _n_params(tree) -> int:
+    """The parameters a tree of tensors holds."""
+    if isinstance(tree, dict):
+        return sum(_n_params(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_n_params(v) for v in tree)
+    return tree.numel()
+
+
+def decode_against_prefill(torch, cfg, params, prompts, pre, tol: float,
+                           tag: str) -> tuple[float, dict]:
+    """Step ``prompts`` [B, P] through ``decode_step`` and hold the last
+    logits to ``pre`` (prefill's) within ``tol``; two controls, the cache
+    one position off (slot 0 left empty but read) and the prompt's first
+    token missing from the cache, must read over it.  → (the max
+    difference, the controls')."""
+    from repro_torch.models import transformer as tf
+
+    B, P = prompts.shape
+
+    def stepped(prompts, shift=0):
+        cache = tf.init_cache(cfg, B, LM_GEN["max_seq"],
+                              device=prompts.device)
+        cache["pos"] += shift
+        for t in range(prompts.shape[1]):
+            logits, cache = tf.decode_step(cfg, params, cache, prompts[:, t])
+        return logits
+
+    step_err = float((stepped(prompts) - pre).abs().max())
+    controls = {
+        "pos off by one": float((stepped(prompts, 1) - pre).abs().max()),
+        "first token dropped": float((stepped(prompts[:, 1:]) - pre)
+                                     .abs().max())}
+    print(f"[{tag}] decode_step over {B} prompts of {P} against prefill: "
+          f"max diff {step_err:.4g} (bound {tol}); controls: " +
+          ", ".join(f"{c}: {d:.4g}" for c, d in controls.items()))
+    check(step_err <= tol, f"decode_step over the prompt and prefill "
+          f"differ by {step_err} > {tol}")
+    check(min(controls.values()) > tol, f"the logit bound {tol} does not "
+          f"see a broken decode cache: {controls}")
+    return step_err, controls
+
+
+def profile_prefill(torch, fn, phase: str, out: Path,
+                    **extra) -> dict:
+    """``fn`` (a prefill) under torch.profiler: a ``[profile]`` line with
+    the device's busy share and the flash kernel's, the GEMMs' and the MoE
+    dispatch's (sorts, searchsorted, scatters and gathers) shares of
+    device time."""
+    row, avgs = _profiled(torch, fn, phase, out)
+    kernel_us = {e.key: _device_us(torch, e) for e in avgs}
+    total_us = sum(kernel_us.values())
+
+    def share(match) -> float:
+        return sum(us for k, us in kernel_us.items() if match(k)) / total_us
+
+    row.update(**extra,
+               flash_share=share(lambda k: "flash_fwd_sm90" in k),
+               gemm_share=share(lambda k: any(t in k.lower()
+                                              for t in GEMM_TAGS)),
+               dispatch_share=share(lambda k: any(t in k.lower()
+                                                  for t in DISPATCH_TAGS)))
+    print(f"[profile] {json.dumps(row)}")
+    return row
+
+
+def moe_phase(torch, card: str, counts: dict,
+              out: Path) -> tuple[dict, dict]:
+    """moonshot-v1-16b-a3b on the card at its published widths and 48
+    layers, bf16, weights from a seeded generator: the flash row at hd =
+    128, the kernel-vs-plain prefill at S = 4,096, the 32k prefill and its
+    profile, decode against a prefill that drops nothing, and generate
+    (see the module docstring)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch, make_markov_lm
+    from repro_torch.kernels.flashattn import ops as flash_ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import generate
+
+    torch.cuda.empty_cache()
+    spec = get_arch(MOE_ARCH)
+    cfg = spec.model_cfg
+    S = spec.shapes["prefill_32k"].dims["seq"]     # its batch cut to 1
+    rows = flash_rows(torch, card, cfg, S, path="moe_prefill", tag="moe")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = tf.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                     device=dev)
+    torch.cuda.synchronize()
+    n_params = _n_params(params)
+    print(f"[moe] {cfg.name}: {n_params:,} parameters "
+          f"({cfg.active_param_count():,} active a token), "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
+          f"init {time.perf_counter() - t0:.1f} s")
+    check(n_params == cfg.param_count(), f"{n_params} parameters, "
+          f"{cfg.param_count()} expected")
+    lm = make_markov_lm(cfg.vocab, seed=0)
+
+    toks = torch.from_numpy(lm_batch(lm, 1, LM_CHECK_SEQ, step=0)[0]).to(dev)
+    kern, kern_aux = tf.prefill_aux(cfg, params, toks)
+    plain, plain_aux = tf.prefill_aux(cfg, params, toks, backend="jnp")
+    e2e_err = float((kern - plain).abs().max())
+    # controls: every layer windowed (the head layer by its index 0, the
+    # scanned ones by sub-layer 0 of a period of 1: C.6)
+    controls = {w: float((tf.prefill(dataclasses.replace(
+        cfg, window=w, window_period=2), params, toks) - plain).abs().max())
+        for w in LM_CONTROL_WINDOWS}
+    print(f"[moe] prefill S={LM_CHECK_SEQ}: last-position logits with the "
+          f"kernel against plain attention, max diff {e2e_err:.4g} (bound "
+          f"{MOE_LOGIT_TOL}; logits' max |x| {float(plain.abs().max()):.3f}"
+          f"; dropped {float(kern_aux['frac_dropped']):.5f} and "
+          f"{float(plain_aux['frac_dropped']):.5f}); controls, the kernel "
+          f"with every layer windowed: " + ", ".join(
+              f"window {w}: {d:.4g}" for w, d in controls.items()))
+    check(e2e_err <= MOE_LOGIT_TOL, f"prefill with the kernel and with "
+          f"plain attention differ by {e2e_err} > {MOE_LOGIT_TOL}")
+    check(min(controls.values()) > MOE_LOGIT_TOL, f"the logit bound "
+          f"{MOE_LOGIT_TOL} does not see attention cut to a window: "
+          f"{controls}")
+    del kern, plain
+
+    toks = torch.from_numpy(lm_batch(lm, 1, S, step=1)[0]).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    flash_ops.COPIES["flash_attention"] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, aux = tf.prefill_aux(cfg, params, toks)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts["moe_prefill"] = kernel_counts()
+    check(counts["moe_prefill"]["flash_attention"] == cfg.n_layers,
+          f"prefill launched flash_attention "
+          f"{counts['moe_prefill']['flash_attention']} times, not "
+          f"{cfg.n_layers}")
+    check(flash_ops.COPIES["flash_attention"] == 0, f"prefill copied "
+          f"{flash_ops.COPIES['flash_attention']} attention inputs for TMA")
+    check(tuple(logits.shape) == (1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          "prefill logits are not [1, V] and finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    dropped = float(aux["frac_dropped"])
+    print(f"[moe] {cfg.name} prefill 1 × {S}: {prefill_s:.3f} s, "
+          f"{S / prefill_s:.1f} tokens/s, flash_attention launches "
+          f"{counts['moe_prefill']['flash_attention']}, input copies "
+          f"{flash_ops.COPIES['flash_attention']}, peak memory "
+          f"{peak_gb:.2f} GB, dropped share {dropped:.5f} (mean over "
+          f"{cfg.n_moe_layers()} MoE layers) ({card})")
+    profile_prefill(torch, lambda: tf.prefill(cfg, params, toks),
+                    "moe_prefill", out, seq=S, card=card)
+    del logits, toks
+
+    # decode never drops (T = B); prefill at a capacity that drops nothing
+    B = LM_GEN["batch"]
+    no_drop = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    prompts = torch.from_numpy(
+        lm_batch(lm, B, MOE_DECODE_PROMPT, step=2)[0]).to(dev)
+    pre, pre_aux = tf.prefill_aux(no_drop, params, prompts)
+    print(f"[moe] prefill of {B} × {MOE_DECODE_PROMPT} at capacity_factor "
+          f"{no_drop.capacity_factor}: dropped share "
+          f"{float(pre_aux['frac_dropped'])}")
+    check(float(pre_aux["frac_dropped"]) == 0.0,
+          "the decode check's prefill dropped entries")
+    step_err, step_controls = decode_against_prefill(
+        torch, cfg, params, prompts, pre, MOE_LOGIT_TOL, "moe")
+
+    P = LM_GEN["prompt"]
+    prompts = torch.from_numpy(lm_batch(lm, B, P, step=3)[0]).to(dev)
+    pre = tf.prefill(no_drop, params, prompts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = generate(cfg, params, prompts, max_new=LM_GEN["max_new"],
+                   max_seq=LM_GEN["max_seq"])
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    check(tuple(gen.shape) == (B, P + LM_GEN["max_new"])
+          and bool((gen[:, :P] == prompts).all())
+          and 0 <= int(gen.min()) and int(gen.max()) < cfg.vocab,
+          "generate returned a wrong shape, a changed prompt or a token "
+          "outside the vocabulary")
+    # the first token is decode_step's argmax, within the bound of the
+    # drop-free prefill's logits: within twice the bound of its best
+    first = pre.gather(1, gen[:, P:P + 1].long())[:, 0]
+    check(bool((first >= pre.max(-1).values - 2 * MOE_LOGIT_TOL).all()),
+          "greedy generate's first token is not among prefill's top "
+          "logits")
+    steps = P + LM_GEN["max_new"] - 1
+    summary = dict(arch=cfg.name, params=n_params,
+                   active_params=cfg.active_param_count(), prefill_seq=S,
+                   prefill_s=prefill_s, prefill_tok_s=S / prefill_s,
+                   prefill_peak_gb=peak_gb, prefill_dropped=dropped,
+                   e2e_logit_diff=e2e_err, decode_vs_prefill_diff=step_err,
+                   decode_prompt=MOE_DECODE_PROMPT, gen_batch=B,
+                   gen_prompt=P, gen_new=LM_GEN["max_new"], gen_s=gen_s,
+                   decode_tok_s=B * steps / gen_s,
+                   new_tok_s=B * LM_GEN["max_new"] / gen_s,
+                   e2e_controls=controls, decode_controls=step_controls)
+    print(f"[moe] generate {B} × ({P} + {LM_GEN['max_new']}) greedy: "
+          f"{gen_s:.2f} s, {B * steps / gen_s:.1f} decode tokens/s "
+          f"({steps} decode steps of {B} rows) ({card})")
+    del params
+    torch.cuda.empty_cache()
     return rows, summary
 
 
@@ -2283,6 +2489,9 @@ def main(argv=None) -> int:
     lm_rows, lm = timed("lm", lm_phase, torch, card, counts,
                         ROOT / "build" / "profile")
     rows.update(lm_rows)
+    moe_rows, moe = timed("moe", moe_phase, torch, card, counts,
+                          ROOT / "build" / "profile")
+    rows.update(moe_rows)
 
     for (name, path), r in rows.items():
         # each kernel behind an entry point ran on the path of its shape
@@ -2297,6 +2506,7 @@ def main(argv=None) -> int:
         kernels.append(r)
     print(f"[paths] launch counts by path: {json.dumps(counts)}")
     print(f"[lm-summary] {json.dumps(lm)} card={card}")
+    print(f"[moe-summary] {json.dumps(moe)} card={card}")
     print(f"[live-summary] {json.dumps(live)} card={card}")
     print(f"[resilient-summary] {json.dumps(resilient)} card={card}")
     print(f"[sharded-summary] {json.dumps(sharded)} card={card}")

@@ -4,8 +4,9 @@
 fields and shapes that a port path reads.
 
 An arch's module is listed in ``_ARCH_MODULES`` once its model is ported:
-smollm-135m came with the LM slice; the other archs come with the slices
-that port their models (MoE, recsys, GNN).
+smollm-135m came with the LM slice, the other four LM archs with the MoE
+slice; the recsys and GNN archs come with the slices that port their
+models.
 """
 
 from __future__ import annotations
@@ -31,7 +32,13 @@ class ArchSpec:
     smoke_cfg: Any = None       # reduced config for CPU tests
 
 
-_ARCH_MODULES = ["smollm_135m"]
+_ARCH_MODULES = [
+    "moonshot_v1_16b_a3b",
+    "llama4_maverick_400b_a17b",
+    "internlm2_20b",
+    "phi3_mini_3_8b",
+    "smollm_135m",
+]
 
 _REGISTRY: dict[str, ArchSpec] = {}
 

@@ -27,6 +27,7 @@ import torch
 
 from .core.distributed import ShardedIndex
 from .core.types import EMQGIndex, GraphIndex, RaBitQCodes, resolve_device
+from .models.transformer import _is_moe_layer
 
 
 def index_from_numpy(vectors, neighbors, medoid, kind: str = "delta_emg",
@@ -110,24 +111,43 @@ def _tensor(x, dev) -> torch.Tensor:
 
 def lm_params_from_numpy(cfg, tree: dict, device="cuda") -> dict:
     """The port's LM parameters from the reference's tree: ``embed``,
-    ``unembed``, ``ln_f``, an empty ``head_layers`` and ``scan`` = one
-    stack of ``[L, ...]`` arrays (a dense model).  Every array keeps its
-    dtype and the ``x @ W`` orientation."""
-    if cfg.n_experts > 0 or tree.get("head_layers") or len(tree["scan"]) != 1:
-        raise NotImplementedError(
-            f"{cfg.name}: only dense models without leading unrolled layers "
-            "are ported (models/moe.py: ROADMAP A.9)")
+    ``unembed``, ``ln_f``, the unrolled ``head_layers`` (layers ``0 ..
+    first_dense − 1``) and ``scan``, a list of ``moe_period`` sub-stacks
+    of ``[n_super, ...]`` arrays (one stack for a dense model), whose row
+    ``s`` of sub-stack ``j`` is layer ``first_dense + s·period + j``.
+    Every array keeps its dtype and orientation (``x @ W``; expert stacks
+    ``[E, d, f]``).  A tree whose layers are not the config's (their
+    count, the number of sub-stacks, or which of them hold ``moe``) raises
+    ``ValueError``."""
     dev = resolve_device(device)
-    stack = tree["scan"][0]
+    head, scan = list(tree.get("head_layers") or []), list(tree["scan"])
+    n_super = len(np.asarray(scan[0]["wq"])) if scan else 0
+    period = cfg.moe_period if cfg.is_moe else 1
+    if any(len(np.asarray(sub["wq"])) != n_super for sub in scan) or \
+            len(head) + len(scan) * n_super != cfg.n_layers or \
+            len(head) != cfg.first_dense or len(scan) != period:
+        raise ValueError(
+            f"{cfg.name}: the tree holds {len(head)} head layers and "
+            f"{len(scan)} scan stacks of {n_super}, not the config's "
+            f"{cfg.first_dense} + {cfg.n_scan_layers} layers in "
+            f"{period} stacks")
+    moe = [i for i, p in enumerate(head + scan * n_super) if "moe" in p]
+    if moe != [i for i in range(cfg.n_layers) if _is_moe_layer(cfg, i)]:
+        raise ValueError(f"{cfg.name}: the tree's MoE layers {moe} are not "
+                         "the config's MoE layers")
 
-    def layer(i, node):
+    def layer(node, row=None):
         if isinstance(node, dict):
-            return {k: layer(i, v) for k, v in node.items()}
-        return _tensor(np.asarray(node)[i], dev)
+            return {k: layer(v, row) for k, v in node.items()}
+        return _tensor(np.asarray(node) if row is None
+                       else np.asarray(node)[row], dev)
 
+    layers = [layer(p) for p in head]
+    layers += [layer(scan[j], s) for s in range(n_super)
+               for j in range(len(scan))]
     return {
         "embed": _tensor(tree["embed"], dev),
         "unembed": _tensor(tree["unembed"], dev),
         "ln_f": _tensor(tree["ln_f"], dev),
-        "layers": [layer(i, stack) for i in range(cfg.n_layers)],
+        "layers": layers,
     }

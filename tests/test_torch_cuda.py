@@ -31,7 +31,9 @@ fails its batch instead of falling back to the plain version.  The
 sharded index on the card gives its plain path's ids, a repaired slot is
 bitwise the slot the sharded build made, and the SPMD transport (two
 ranks on the one card, gloo between them) equals the single-controller
-search.
+search.  ``moe_apply`` on the card drops the entries its CPU run drops and
+agrees with it (f32 to 1e-5, bf16 within 2^-5 of the output's largest
+magnitude), and a bf16 MoE prefill gives the same logits twice.
 """
 
 import dataclasses
@@ -54,6 +56,7 @@ from repro_torch.kernels.l2dist import ops as l2ops
 from repro_torch.kernels.l2dist import ref as l2ref
 from repro_torch.configs import get_arch
 from repro_torch.models import common
+from repro_torch.models import moe
 from repro_torch.models import transformer as tf
 from repro_torch.core.updates import JournaledLiveIndex, as_live, recover
 from repro_torch.core.verify import audit_live
@@ -870,15 +873,17 @@ def test_flash_sm90_products_match_matmul(cuda, hd):
 @pytest.mark.cuda
 def test_flash_sm90_resources(cuda):
     """The tensor-core kernel's compiled instances: within the register and
-    shared-memory limits of one block an SM, and no spills at hd = 64 (the
-    LM's)."""
+    shared-memory limits of one block an SM, and no spills at hd = 64
+    (smollm's) and hd = 128 (moonshot's: 168 registers, 0 local bytes on
+    an H100)."""
     for hd in flash_ops.HEAD_DIMS:
         res = flash_ops.sm90_resources(hd)
         print(f"hd={hd}: {res}")
         assert 0 < res["registers"] <= 255
         assert res["dynamic_smem_bytes"] + res["static_smem_bytes"] <= 232448
         assert res["max_threads"] >= 384
-    assert flash_ops.sm90_resources(64)["local_bytes"] == 0
+    for hd in (64, 128):
+        assert flash_ops.sm90_resources(hd)["local_bytes"] == 0
 
 
 @pytest.mark.cuda
@@ -993,3 +998,48 @@ def test_lm_bf16_prefill_on_card_matches_plain_attention(cuda):
     plain = tf.prefill(cfg, params, toks, backend="jnp")
     assert torch.isfinite(kern).all()
     assert float((kern.float() - plain.float()).abs().max()) <= LM_LOGIT_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_apply_on_card_matches_cpu(cuda, dtype):
+    """``moe_apply`` at moonshot's smoke widths (d 64, f 96, E 8, top-6)
+    with drops, on the card against its CPU run on the same values: the
+    same entries dropped; f32 to rtol/atol 1e-5, bf16 within 2^-5 of the
+    output's largest magnitude (four bf16 ulps at its top: the GEMMs round
+    to bf16 in other places)."""
+    gen = torch.Generator().manual_seed(5)
+    p = moe.moe_init(gen, 64, 96, 8, dtype, device="cpu")
+    x = torch.randn((256, 64), generator=gen).to(dtype)
+    want, want_aux = moe.moe_apply(p, x, 6, capacity_factor=1.0,
+                                   n_groups=2)
+    got, aux = moe.moe_apply({k: v.to(cuda) for k, v in p.items()},
+                             x.to(cuda), 6, capacity_factor=1.0, n_groups=2)
+    assert got.dtype == dtype and float(want_aux["frac_dropped"]) > 0
+    assert round(float(aux["frac_dropped"]) * 256 * 6) == \
+        round(float(want_aux["frac_dropped"]) * 256 * 6)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    else:
+        err = float((got.cpu().float() - want.float()).abs().max())
+        assert err <= 2 ** -5 * float(want.float().abs().max()), err
+
+
+@pytest.mark.cuda
+def test_moe_bf16_prefill_on_card_is_deterministic(cuda):
+    """The MoE smoke config in bf16 with drops: two prefills give the same
+    logits to the bit (the combine adds each token's slots in expert order,
+    with no atomics), and the kernel launches once a layer."""
+    cfg = dataclasses.replace(get_arch("moonshot-v1-16b-a3b").smoke_cfg,
+                              dtype=torch.bfloat16, capacity_factor=1.0)
+    params = tf.init(cfg, torch.Generator(device=cuda).manual_seed(2),
+                     device=cuda)
+    lm = port_data.make_markov_lm(cfg.vocab, seed=2)
+    toks = torch.from_numpy(port_data.lm_batch(lm, 2, 300, step=0)[0]).to(cuda)
+    before = flash_ops.LAUNCHES["flash_attention"]
+    first, aux = tf.prefill_aux(cfg, params, toks)
+    assert flash_ops.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    assert float(aux["frac_dropped"]) > 0
+    second = tf.prefill(cfg, params, toks)
+    assert torch.isfinite(first).all()
+    torch.testing.assert_close(second, first, rtol=0, atol=0)

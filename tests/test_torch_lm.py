@@ -187,13 +187,35 @@ def test_markov_data_matches_reference():
             np.testing.assert_array_equal(a, b)
 
 
-def test_moe_config_raises():
-    moe = tf.LMConfig(name="moe", n_experts=4)
-    for call in (lambda: tf.init(moe, device="cpu"), moe.param_count,
-                 lambda: tf.init_cache(moe, 1, 8, device="cpu"),
-                 lambda: tf.forward(moe, {}, torch.zeros(1, 4, dtype=torch.int32))):
-        with pytest.raises(NotImplementedError, match="A.9"):
-            call()
+def test_moe_config_runs_on_cpu():
+    """``init``, ``param_count``, ``init_cache`` and ``forward`` on a MoE
+    smoke config (leading dense layer, shared experts) on the CPU."""
+    cfg = get_arch("moonshot-v1-16b-a3b").smoke_cfg
+    params = tf.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    n = sum(t.numel() for p in params["layers"] for t in
+            [*(x for x in p.values() if torch.is_tensor(x)),
+             *(t for x in p.values() if isinstance(x, dict)
+               for t in x.values())])
+    n += sum(params[k].numel() for k in ("embed", "unembed", "ln_f"))
+    assert n == cfg.param_count()
+    assert ["moe" in p for p in params["layers"]] == [False, True, True]
+    cache = tf.init_cache(cfg, 2, 8, device="cpu")
+    assert cache["k"].shape == (cfg.n_layers, 2, 8, cfg.n_kv_heads, cfg.hd)
+    logits = tf.forward(cfg, params, torch.zeros(2, 5, dtype=torch.int32))
+    assert logits.shape == (2, 5, cfg.vocab) and torch.isfinite(logits).all()
+
+
+def test_lm_params_from_numpy_refuses_a_wrong_layer_count():
+    tree = jax.tree.map(np.asarray, ref_tf.init(SMOKE, jax.random.PRNGKey(0)))
+    for cfg in (dataclasses.replace(port_cfg(SMOKE), n_layers=4),
+                dataclasses.replace(port_cfg(SMOKE), first_dense=1),
+                # the right depth, the wrong MoE layout: one dense stack
+                # where the config has 3 sub-stacks, or has every layer MoE
+                dataclasses.replace(port_cfg(SMOKE), n_experts=4,
+                                    moe_period=3),
+                dataclasses.replace(port_cfg(SMOKE), n_experts=4)):
+        with pytest.raises(ValueError, match="layers"):
+            lm_params_from_numpy(cfg, tree, device="cpu")
 
 
 def test_port_init_runs_on_cpu():
