@@ -134,7 +134,8 @@ non-zero and prints no result line):
                the healthy ids again (path ``shard_repair``: every
                sweep's launches); and the SPMD search, 2 ranks on the card
                in 2 processes with gloo between, equal to the single
-               controller on every rank;
+               controller on every rank (its processes start right after
+               the build and run beside the rest of the phase);
 10. exact   — ``build_exact`` (Algorithm 2) at n = 4,000, then Theorem 1:
    build      a greedy W = 1 search from the medoid for every corpus point
                returns that point at distance 0;
@@ -172,8 +173,32 @@ non-zero and prints no result line):
                ``decode_step``'s logits after the prompt against
                ``prefill``'s.  Controls with attention or the decode cache
                broken on purpose must break the logit bound;
-14. moe     — moonshot-v1-16b-a3b at its published widths and 48 layers in
-               bf16 (28.3 B parameters, 56.7 GB, from a seeded generator):
+14. train   — smollm-135m trained at its published widths in bf16
+               (``train_4k``'s sequence of 4,096; its batch of 256 cut to
+               8 and its accumulation of 4 to 2): the backward kernel
+               (``flash_attn_bwd.cu``) against ``attention_bwd_ref`` in f32
+               at q [4, 4096, 9, 64], dq, dk and dv each within
+               ``ref.grad_err_ratio``'s bound, a query tile cut and a
+               window one key tile short breaking it, timed beside its
+               plain version and SDPA's backward, and the forward kernel's
+               row at that shape; ``loss_fn``'s gradients with the kernels
+               against the plain attention's on one microbatch (the
+               largest per-leaf relative error within ``TRAIN_GRAD_TOL``,
+               every layer windowed breaking it); ``TRAIN_STEPS`` steps of
+               ``make_train_step`` (AdamW, f32 moments), the loss falling,
+               seconds a step, tokens/s, model FLOPs as a share of the
+               bf16 peak, peak memory, exactly one forward and its remat
+               and one backward launch a layer and microbatch; a
+               checkpoint at ``TRAIN_RESUME_AT``, a restore and the rest
+               of the run, losses and state equal to the uninterrupted
+               run's bit for bit, its last step profiled (busy share, the
+               flash forward's, backward's and GEMMs' shares); all under
+               ``torch.use_deterministic_algorithms``; ``[train]`` and
+               ``[train-summary]`` lines;
+15. moe     — moonshot-v1-16b-a3b at its published widths, its 48 layers
+               cut to 16 (``MOE_LAYERS``, to win back the train phase's
+               time), in bf16 (9.5 B parameters, 19 GB, from a seeded
+               generator):
                first, before any weight, the flash row at hd = 128 (q/kv
                [1, 32768, 16, 128], and the windowed GQA and ragged shapes
                at hd = 128) as in the lm phase, reported at the path
@@ -182,7 +207,7 @@ non-zero and prints no result line):
                logits within ``MOE_LOGIT_TOL``, every layer windowed on
                purpose must break it; no f32-model reading: 113 GB);
                the prefill of one 32,768-token prompt (``prefill_32k`` with
-               its batch cut from 32 to 1), 48 kernel launches and no input
+               its batch cut from 32 to 1), one kernel launch a layer, no input
                copied, the mean dropped share, and a ``[profile]`` line
                (busy share; flash, GEMM and dispatch shares);
                ``decode_step`` over 8 prompts of 32 tokens (cut from 128)
@@ -195,7 +220,8 @@ Every kernel's launch count is set to 0 just before the path that runs it
 and read just after; a kernel that path never launched fails the run.  The
 ``kernels`` line reports each kernel at the shape of the path whose launch
 count it prints (``gather_l2_tiled`` at three paths, ``batched_l2`` at
-four; ``kernel`` names the kernel behind the entry point, whose launches
+four, ``flash_attention`` at three: ``lm_prefill``, ``moe_prefill`` and
+``train``, and ``flash_attention_bwd`` at ``train``; ``kernel`` names the kernel behind the entry point, whose launches
 those are; a ragged-d row and ``gather_l2``'s also carry ``blocks_ms``, the
 block kernel's time at its shape).  Each phase prints its seconds.  The
 line before the last is the card; the one before it the ``kernels`` JSON;
@@ -207,8 +233,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -251,15 +279,17 @@ LM_CONTROL_WINDOWS = (1, LM_CHECK_SEQ // 2, LM_CHECK_SEQ - 64)
 # in f32 is printed beside.
 LM_LOGIT_TOL = 0.2
 MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_LAYERS = 16                # cut from 48 to win back the train phase's time
 MOE_DECODE_PROMPT = 32         # the decode = prefill check: cut from 128
 # The MoE model's logits bound (kernel vs plain prefill at S = 4,096,
-# decode vs a prefill that drops nothing).  Through 48 layers a bf16
+# decode vs a prefill that drops nothing).  Through its layers a bf16
 # rounding in attention can flip a near-tied expert of a token (a sixth of
 # its FFN output) or move a capacity drop, so the sound readings sit above
-# smollm's: on an H100 they read 0.352 and 0.535, the subtlest control
-# (every layer's window 64 keys short of the last row's reach) 1.19 and
-# the decode controls 3.75 and 6.05.  The bound sits near the geometric
-# mean of 0.535 and 1.19.
+# smollm's: on an H100 at 48 layers they read 0.352 and 0.535, the subtlest
+# control (every layer's window 64 keys short of the last row's reach) 1.19
+# and the decode controls 3.75 and 6.05; at 16 layers 0.201 and 0.384,
+# 1.188, 2.375 and 5.008.  The bound sits near the geometric mean of 0.535
+# and 1.19.
 MOE_LOGIT_TOL = 0.8
 # kernel names of the MoE dispatch and combine (sorts, searchsorted,
 # scatters and gathers) in a profile of the prefill
@@ -270,6 +300,24 @@ FLASH_MAX_SDPA_RATIO = 4.0
 # kernel names of the dense products (cuBLAS's GEMM / GEMV kernels) in a
 # profile of the prefill
 GEMM_TAGS = ("gemm", "gemv", "nvjet", "xmma")
+# the train phase: smollm-135m at published widths, train_4k's sequence;
+# its batch of 256 cut to 8 and its accumulation of 4 cut to 2 (microbatches
+# of 4) to fit the phase in about a minute
+TRAIN_ARCH = LM_ARCH
+TRAIN_BATCH = 8
+TRAIN_ACCUM = 2
+TRAIN_STEPS = 8
+TRAIN_RESUME_AT = 7            # checkpoint here, "crash", restore, finish
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2)   # else the reference's OptConfig
+# the bound on the largest per-leaf relative gradient error, ‖kernel −
+# plain‖ / ‖plain‖, of loss_fn on one microbatch with the kernels' attention
+# against the plain blockwise attention; set between the sound reading and
+# the subtlest control's (see PERF.md §2)
+TRAIN_GRAD_TOL = 0.042
+# controls: every layer windowed on purpose (window_period 2 windows every
+# layer of a dense model, C.6)
+TRAIN_CONTROL_WINDOWS = (4096 // 2, 4096 - 64)
+BWD_KERNELS = ("bwd_prep_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel")
 
 # the live phase's op stream on the served index: (op, argument); an insert
 # takes clustered_vectors(LIVE_INSERT, 128, 48, seed), "delete" LIVE_DELETE
@@ -423,7 +471,8 @@ REPORTED = (("gather_l2_tiled", "drain"), ("gather_l2_tiled", "build"),
             ("batched_l2", "build"), ("batched_l2", "live"),
             ("batched_l2", "exact_build"),
             ("batched_l2", "mips_build"), ("flash_attention", "lm_prefill"),
-            ("flash_attention", "moe_prefill"))
+            ("flash_attention", "moe_prefill"), ("flash_attention", "train"),
+            ("flash_attention_bwd", "train"))
 
 
 def batched_cases() -> tuple:
@@ -1176,16 +1225,17 @@ def mips_phase(torch, card: str, counts: dict) -> None:
 
 
 def flash_rows(torch, card: str, cfg, S: int, path: str = "lm_prefill",
-               tag: str = "lm") -> dict:
-    """flash_attention at the prefill's shape (``cfg``'s heads and head_dim)
-    against the plain blockwise attention (the full matrix would be 39 GB
-    of scores at smollm's), timed beside its plain version and SDPA; then,
-    untimed, a windowed GQA shape and an S that is no multiple of the
-    64-row tile, at ``cfg``'s head_dim, against the full-matrix version.
-    Each is held to ``ref.err_ratio``'s bf16 bound against the plain
-    version in f32 on the same values; a control, the kernel with a key
-    tile cut from the last row (window S - 64), must break it.  The row
-    reports the kernel at ``path``."""
+               tag: str = "lm", batch: int = 1, extras: bool = True) -> dict:
+    """flash_attention at the path's shape (``batch`` sequences of S,
+    ``cfg``'s heads and head_dim) against the plain blockwise attention
+    (the full matrix would be 39 GB of scores at smollm's prefill), timed
+    beside its plain version and SDPA; then, with ``extras``, untimed, a
+    windowed GQA shape and an S that is no multiple of the 64-row tile, at
+    ``cfg``'s head_dim, against the full-matrix version, and the instance's
+    compiled resources.  Each is held to ``ref.err_ratio``'s bf16 bound
+    against the plain version in f32 on the same values; a control, the
+    kernel with a key tile cut from the last row (window S - 64), must
+    break it.  The row reports the kernel at ``path``."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -1196,8 +1246,8 @@ def flash_rows(torch, card: str, cfg, S: int, path: str = "lm_prefill",
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
 
-    def qkv(S, H, KV, hd):
-        return [torch.randn((1, S, n, hd), generator=g, device=dev)
+    def qkv(S, H, KV, hd, B=1):
+        return [torch.randn((B, S, n, hd), generator=g, device=dev)
                 .to(torch.bfloat16) for n in (H, KV, KV)]
 
     def held(q, k, v, window, want, what) -> float:
@@ -1220,7 +1270,8 @@ def flash_rows(torch, card: str, cfg, S: int, path: str = "lm_prefill",
         return err
 
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    for n, Hs, KVs, window in ((1000, 8, 2, 100), (4097, 9, 3, None)):
+    for n, Hs, KVs, window in (((1000, 8, 2, 100), (4097, 9, 3, None))
+                               if extras else ()):
         q, k, v = qkv(n, Hs, KVs, hd)
         G = Hs // KVs
         want = flash_ref.attention_ref(
@@ -1229,10 +1280,11 @@ def flash_rows(torch, card: str, cfg, S: int, path: str = "lm_prefill",
         held(q, k, v, window, want, f"S={n} H={Hs} KV={KVs} hd={hd} "
              f"window={window} against the full matrix")
 
-    q, k, v = qkv(S, H, KV, hd)
+    B = batch
+    q, k, v = qkv(S, H, KV, hd, B)
     want = common.flash_attention(q.float(), k.float(), v.float(),
                                   backend="jnp")
-    err = held(q, k, v, None, want, f"[1,{S},{H}/{KV},{hd}] against the "
+    err = held(q, k, v, None, want, f"[{B},{S},{H}/{KV},{hd}] against the "
                "plain blockwise version")
     del want
     out = flash_ops.flash_attention(q, k, v)
@@ -1248,13 +1300,13 @@ def flash_rows(torch, card: str, cfg, S: int, path: str = "lm_prefill",
             qt, kt, vt, is_causal=True, enable_gqa=True), reps=5)
     lib_err = float((lib.transpose(1, 2).float() - out.float()).abs().max())
     pairs = S * (S + 1) // 2               # (query, key) pairs under the mask
-    flops = 4 * hd * pairs * H
-    bound_ms, bound_by = bound(2 * (2 * S * H * hd + 2 * S * KV * hd),
+    flops = 4 * hd * pairs * H * B
+    bound_ms, bound_by = bound(2 * B * (2 * S * H * hd + 2 * S * KV * hd),
                                flops, BF16_TC_FLOP_PER_S)
     row = dict(name="flash_attention", route="cuda",
                source="src/repro_torch/kernels/csrc/flash_attn_sm90.cu",
                replaces="src/repro/kernels/flashattn/flashattn.py:101",
-               path=path, shape=f"q[1,{S},{H},{hd}] kv[1,{S},{KV},"
+               path=path, shape=f"q[{B},{S},{H},{hd}] kv[{B},{S},{KV},"
                f"{hd}] bf16 causal", max_abs_err=err, ms=ms,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                library_ms=library_ms)
@@ -1266,9 +1318,11 @@ def flash_rows(torch, card: str, cfg, S: int, path: str = "lm_prefill",
           f"bound, {ms / library_ms:.2f}x SDPA ({card})")
     check(ms <= FLASH_MAX_SDPA_RATIO * library_ms, f"flash_attention takes "
           f"{ms} ms, over {FLASH_MAX_SDPA_RATIO}x SDPA's {library_ms} ms")
-    print(f"[kernel] flash_attention bf16 hd={hd} instance: "
-          f"{json.dumps(flash_ops.sm90_resources(hd))}; {sass_count()} "
-          f"HGMMA instructions in its library; ptxas: {ptxas_report(hd)}")
+    if extras:
+        print(f"[kernel] flash_attention bf16 hd={hd} instance: "
+              f"{json.dumps(flash_ops.sm90_resources(hd))}; {sass_count()} "
+              f"HGMMA instructions in its library; ptxas: "
+              f"{ptxas_report(hd)}")
     del q, k, v, out, lib
     torch.cuda.empty_cache()
     return {("flash_attention", path): row}
@@ -1291,15 +1345,17 @@ def sass_count(op: str = "HGMMA") -> str:
     return str(sum(op in line for line in sass.stdout.splitlines()))
 
 
-def ptxas_report(hd: int) -> str:
-    """ptxas's lines on the bf16 kernel's instance for ``hd`` (registers,
-    spills, serialised wgmma) from the library's build log."""
+def ptxas_report(hd: int, lib: str = "flash_attn_sm90",
+                 kernels: tuple = ("flash_fwd_sm90",), suffix: str = "") -> str:
+    """ptxas's lines on the bf16 instances for ``hd`` of ``kernels`` in
+    ``lib`` (registers, spills, serialised wgmma) from its build log."""
     from repro_torch.kernels import _build
 
-    lines = _build.build_log("flash_attn_sm90").splitlines()
-    tag = f"flash_fwd_sm90ILi{hd}E"
+    lines = _build.build_log(lib).splitlines()
+    tags = [f"{k}ILi{hd}E{suffix}" for k in kernels]
     keep = [ln.strip() for i, ln in enumerate(lines)
-            if tag in ln or any(tag in p for p in lines[max(0, i - 2):i])]
+            if any(tag in ln or any(tag in p for p in lines[max(0, i - 2):i])
+                   for tag in tags)]
     return " | ".join(keep) or "no report"
 
 
@@ -1493,6 +1549,298 @@ def profile_prefill(torch, fn, phase: str, out: Path,
     return row
 
 
+def event_ms(torch, fn, reps: int = 5) -> float:
+    """Mean time of one eager ``fn()`` call between two CUDA events, after
+    two warm-up calls (for work a CUDA graph cannot capture: autograd)."""
+    fn()
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def flash_bwd_row(torch, card: str, cfg, S: int, B: int, path: str) -> dict:
+    """The backward kernel at the train step's attention shape (``B``
+    sequences of S, ``cfg``'s heads) against ``attention_bwd_ref`` in f32 on
+    the same bf16 values (dq, dk and dv each within ``grad_err_ratio``'s
+    bound); two controls must break it: the last 64-row query tile cut from
+    the backward (its dO zeroed) in each of dq, dk and dv, and a window one
+    64-key tile short in dq.  Timed beside its plain version and SDPA's
+    backward through autograd (the library yardstick, never called by the
+    port)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flashattn import ops as flash_ops
+    from repro_torch.kernels.flashattn import ref as flash_ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v, do = [torch.randn((B, S, n, hd), generator=g, device=dev)
+                   .to(torch.bfloat16) for n in (H, KV, KV, H)]
+    o = flash_ops.flash_attention(q, k, v)
+    got = flash_ops.flash_attention_bwd(q, k, v, o, do)
+    want = flash_ref.attention_bwd_ref(*(x.float() for x in (q, k, v, o, do)))
+    ratios = [flash_ref.grad_err_ratio(a, w) for a, w in zip(got, want)]
+    err = max(float((a.float() - w).abs().max()) for a, w in zip(got, want))
+    cut = do.clone()
+    cut[:, -64:] = 0
+    tile_cut = [flash_ref.grad_err_ratio(a, w) for a, w in zip(
+        flash_ops.flash_attention_bwd(q, k, v, o, cut), want)]
+    short = flash_ref.grad_err_ratio(flash_ops.flash_attention_bwd(
+        q, k, v, o, do, window=S - 64)[0], want[0])
+    del want, got, cut
+    names = ("dq", "dk", "dv")
+    print(f"[train] flash_attention_bwd [{B},{S},{H}/{KV},{hd}] bf16 causal "
+          f"against the plain backward in f32: max error {err:.3g}; "
+          + ", ".join(f"{n} {r:.3f}" for n, r in zip(names, ratios))
+          + " of the bound; controls, the last query tile cut: "
+          + ", ".join(f"{n} {r:.1f}" for n, r in zip(names, tile_cut))
+          + f"; a window one key tile short: dq {short:.1f}")
+    check(max(ratios) <= 1.0, f"flash_attention_bwd is {ratios} of the bf16 "
+          "gradient bound")
+    check(min(tile_cut) > 1.0 and short > 1.0, f"the gradient bound does not "
+          f"see a cut tile: {tile_cut}, {short}")
+    ms = device_ms(torch, lambda: flash_ops.flash_attention_bwd(
+        q, k, v, o, do), reps=5)
+    plain_ms = device_ms(torch, lambda: flash_ref.attention_bwd_ref(
+        q, k, v, o, do), reps=2)
+    leaves = [x.detach().transpose(1, 2).requires_grad_(True)
+              for x in (q, k, v)]
+    dot = do.transpose(1, 2)
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION]):
+        lib = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=True)
+        library_ms = event_ms(torch, lambda: torch.autograd.grad(
+            lib, leaves, dot, retain_graph=True))
+    del lib, leaves
+    pairs = S * (S + 1) // 2
+    flops = 10 * hd * pairs * H * B        # 2.5x the forward's products
+    nbytes = 2 * B * S * (4 * H * hd + 4 * KV * hd)   # q k v o dO; dq dk dv
+    bound_ms, bound_by = bound(nbytes, flops, BF16_TC_FLOP_PER_S)
+    row = dict(name="flash_attention_bwd", route="cuda",
+               source="src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
+               replaces="src/repro/models/common.py:74",
+               note="no Pallas backward: the JAX package trains through "
+                    "jax.grad of its jnp blockwise attention",
+               path=path, shape=f"q[{B},{S},{H},{hd}] kv[{B},{S},{KV},{hd}] "
+               "bf16 causal", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    print(f"[kernel] flash_attention_bwd {row['shape']} ({path}): err "
+          f"{err:.3g} ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+          f"{bound_ms:.4f} ({bound_by}) library_ms (sdpa backward) "
+          f"{library_ms:.4f}; {flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{bound_ms / ms:.4f} of the bound, {ms / library_ms:.2f}x SDPA's "
+          f"backward ({card})")
+    print(f"[kernel] flash_attention_bwd bf16 hd={hd}: ptxas: "
+          + ptxas_report(hd, "flash_attn_bwd", BWD_KERNELS, "13__nv_bfloat16"))
+    del q, k, v, o, do
+    torch.cuda.empty_cache()
+    return {("flash_attention_bwd", path): row}
+
+
+def _rel_errors(got: list, want: list) -> list:
+    """‖a − b‖ / ‖b‖ in f32 of each pair of gradient leaves."""
+    return [float((a.float() - b.float()).norm() / b.float().norm())
+            for a, b in zip(got, want)]
+
+
+def train_phase(torch, card: str, counts: dict,
+                out: Path) -> tuple[dict, dict]:
+    """smollm-135m trained on the card at published widths in bf16 (see the
+    module docstring): the flash rows at the step's shape, the model's
+    gradients against the plain attention's, TRAIN_STEPS steps of
+    ``make_train_step`` with a checkpoint, a bitwise resume whose last step
+    is profiled.  Under ``torch.use_deterministic_algorithms`` from the
+    gradients on."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch, make_markov_lm
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+    from repro_torch.train import TrainState, make_train_step
+
+    marks = {}
+    t_mark = time.perf_counter()
+
+    def mark(name):
+        nonlocal t_mark
+        now = time.perf_counter()
+        marks[name] = now - t_mark
+        t_mark = now
+
+    spec = get_arch(TRAIN_ARCH)
+    cfg, shape = spec.model_cfg, spec.shapes["train_4k"]
+    S, micro = shape.dims["seq"], TRAIN_BATCH // TRAIN_ACCUM
+    print(f"[train] {cfg.name} × train_4k: seq {S}, batch "
+          f"{shape.dims['batch']} cut to {TRAIN_BATCH}, accumulation "
+          f"{shape.accum_steps} cut to {TRAIN_ACCUM} (microbatches of {micro})")
+    rows = flash_rows(torch, card, cfg, S, path="train", tag="train",
+                      batch=micro, extras=False)
+    mark("flash_row")
+    rows.update(flash_bwd_row(torch, card, cfg, S, micro, "train"))
+    mark("flash_bwd_row")
+    dev = torch.device("cuda")
+    params = tf.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                     device=dev)
+    lm = make_markov_lm(cfg.vocab, seed=0)
+    batches = []
+    for s in range(TRAIN_STEPS):
+        toks, tgts = lm_batch(lm, TRAIN_BATCH, S, s, seed=0)
+        batches.append({k: torch.from_numpy(x).reshape(
+            TRAIN_ACCUM, micro, S).to(dev) for k, x in (("tokens", toks),
+                                                        ("targets", tgts))})
+    mark("init_and_data")
+
+    def loss_and_grads(c, backend):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        loss, _ = tf.loss_fn(c, tree_unflatten(params, leaves),
+                             batches[0]["tokens"][0],
+                             batches[0]["targets"][0], backend=backend)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    opt = OptConfig(**TRAIN_OPT)
+    step_fn = make_train_step(
+        lambda p, b: tf.loss_fn(cfg, p, b["tokens"], b["targets"]), opt,
+        accum_steps=TRAIN_ACCUM)
+    ckpt_dir = ROOT / "build" / "train" / "ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt_dir), every=TRAIN_RESUME_AT, keep=1)
+    torch.use_deterministic_algorithms(True)
+    try:
+        # the whole model's gradients on one microbatch: the kernels'
+        # attention (forward and backward kernels) against the plain
+        # blockwise attention
+        k_loss, k_grads = loss_and_grads(cfg, "auto")
+        p_loss, p_grads = loss_and_grads(cfg, "jnp")
+        rel = _rel_errors(k_grads, p_grads)
+        del k_grads
+        controls = {w: max(_rel_errors(loss_and_grads(
+            dataclasses.replace(cfg, window=w, window_period=2), "auto")[1],
+            p_grads)) for w in TRAIN_CONTROL_WINDOWS}
+        del p_grads
+        mark("gradients")
+
+        state = TrainState.create(params, opt)
+        losses, step_s = [], []
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        torch.cuda.synchronize()
+        for s in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batches[s])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            mgr.maybe_save(s + 1, state)   # host copies now, written beside
+        counts["train"] = kernel_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        mgr.wait()
+        mark("steps")
+        step0, resumed = mgr.restore(TrainState.create(params, opt),
+                                     device=dev)
+        mark("restore")
+        check(step0 == TRAIN_RESUME_AT and int(resumed.step) == step0
+              and int(resumed.opt_state["step"]) == step0,
+              f"restored step {step0}, state step {int(resumed.step)}")
+        resumed_losses = []
+        for s in range(TRAIN_RESUME_AT, TRAIN_STEPS):
+            def one(s=s):
+                nonlocal resumed
+                resumed, m = step_fn(resumed, batches[s])
+                resumed_losses.append(float(m["loss"]))
+
+            if s < TRAIN_STEPS - 1:
+                one()
+            else:                          # the last step, profiled
+                prof = _profiled(torch, one, "train_step", out, cpu=False)
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves([state.params, state.opt_state, state.step]),
+            tree_leaves([resumed.params, resumed.opt_state, resumed.step])))
+        del resumed
+        mark("resume_and_profile")
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    grad_err = max(rel)
+    print(f"[train] loss_fn on one microbatch [{micro},{S}], the kernels "
+          f"against plain attention: loss {k_loss:.6f} vs {p_loss:.6f}; the "
+          f"largest per-leaf relative gradient error {grad_err:.4g} (median "
+          f"{float(np.median(rel)):.4g}, bound {TRAIN_GRAD_TOL}); controls, "
+          f"every layer windowed: " + ", ".join(
+              f"window {w}: {e:.4g}" for w, e in controls.items()))
+    check(abs(k_loss - p_loss) <= 1e-2 * abs(p_loss) and np.isfinite(k_loss),
+          f"loss with the kernels {k_loss}, plain {p_loss}")
+    check(grad_err <= TRAIN_GRAD_TOL, f"gradients with the kernels and with "
+          f"plain attention differ by {grad_err} > {TRAIN_GRAD_TOL}")
+    check(min(controls.values()) > TRAIN_GRAD_TOL, f"the gradient bound "
+          f"{TRAIN_GRAD_TOL} does not see attention cut to a window: "
+          f"{controls}")
+    check(resumed_losses == losses[TRAIN_RESUME_AT:] and same,
+          f"the resumed run differs: losses {resumed_losses} against "
+          f"{losses[TRAIN_RESUME_AT:]}, state bitwise {same}")
+    row, avgs = prof
+    kernel_us = {e.key: _device_us(torch, e) for e in avgs}
+    total_us = sum(kernel_us.values())
+
+    def share(match) -> float:
+        return sum(us for k, us in kernel_us.items() if match(k)) / total_us
+
+    row.update(flash_fwd_share=share(lambda k: "flash_fwd_sm90" in k),
+               flash_bwd_share=share(lambda k: any(t in k
+                                                   for t in BWD_KERNELS)),
+               gemm_share=share(lambda k: any(t in k.lower()
+                                              for t in GEMM_TAGS)),
+               card=card)
+    print(f"[profile] {json.dumps(row)}")
+
+    n_launch = counts["train"]
+    per_step = TRAIN_ACCUM * cfg.n_layers
+    check(n_launch["flash_attention_bwd"] == TRAIN_STEPS * per_step
+          and n_launch["flash_attention"] == 2 * TRAIN_STEPS * per_step,
+          f"{TRAIN_STEPS} steps launched flash_attention "
+          f"{n_launch['flash_attention']} and flash_attention_bwd "
+          f"{n_launch['flash_attention_bwd']} times, not {2 * per_step} and "
+          f"{per_step} a step (a forward and its remat a layer, a backward)")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"the loss did not fall: {losses}")
+    tokens = TRAIN_BATCH * S
+    secs = float(np.mean(step_s[1:]))
+    # model FLOPs: 6 N a token, and attention's products forward (4 hd a
+    # causal pair a head) and backward (twice that)
+    attn = 3 * 4 * cfg.hd * (S * (S + 1) // 2) * cfg.n_heads * cfg.n_layers
+    flops = 6 * cfg.param_count() * tokens + attn * TRAIN_BATCH
+    summary = dict(
+        arch=cfg.name, params=cfg.param_count(), seq=S, batch=TRAIN_BATCH,
+        accum=TRAIN_ACCUM, steps=TRAIN_STEPS, losses=losses,
+        first_step_s=step_s[0], step_s=secs, tokens_per_s=tokens / secs,
+        model_flops_per_step=flops, mfu=flops / secs / BF16_TC_FLOP_PER_S,
+        peak_gb=peak_gb, loss_kernel=k_loss, loss_plain=p_loss,
+        grad_rel_err=grad_err, grad_controls=controls,
+        resume_at=TRAIN_RESUME_AT, resumed_bitwise=True,
+        launches_per_step={k: n_launch[k] / TRAIN_STEPS
+                           for k in ("flash_attention", "flash_attention_bwd")},
+        seconds=marks, profile=row)
+    print(f"[train] {TRAIN_STEPS} steps of {TRAIN_ACCUM} × [{micro},{S}]: "
+          f"loss {losses[0]:.4f} → {losses[-1]:.4f}; {secs:.3f} s a step "
+          f"(first {step_s[0]:.3f}), {tokens / secs:.1f} tokens/s, model "
+          f"FLOPs {flops:.4g} a step, {summary['mfu']:.4f} of the bf16 peak; "
+          f"peak memory {peak_gb:.2f} GB; resumed at step {TRAIN_RESUME_AT} "
+          f"from its checkpoint: losses and state equal to the uninterrupted "
+          f"run's, bitwise; seconds {json.dumps(marks)} ({card})")
+    return rows, summary
+
+
 def moe_phase(torch, card: str, counts: dict,
               out: Path) -> tuple[dict, dict]:
     """moonshot-v1-16b-a3b on the card at its published widths and 48
@@ -1508,7 +1856,7 @@ def moe_phase(torch, card: str, counts: dict,
 
     torch.cuda.empty_cache()
     spec = get_arch(MOE_ARCH)
-    cfg = spec.model_cfg
+    cfg = dataclasses.replace(spec.model_cfg, n_layers=MOE_LAYERS)
     S = spec.shapes["prefill_32k"].dims["seq"]     # its batch cut to 1
     rows = flash_rows(torch, card, cfg, S, path="moe_prefill", tag="moe")
     dev = torch.device("cuda")
@@ -1517,7 +1865,8 @@ def moe_phase(torch, card: str, counts: dict,
                      device=dev)
     torch.cuda.synchronize()
     n_params = _n_params(params)
-    print(f"[moe] {cfg.name}: {n_params:,} parameters "
+    print(f"[moe] {cfg.name} at {cfg.n_layers} of its "
+          f"{spec.model_cfg.n_layers} layers: {n_params:,} parameters "
           f"({cfg.active_param_count():,} active a token), "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
           f"init {time.perf_counter() - t0:.1f} s")
@@ -1640,12 +1989,16 @@ def _device_us(torch, event) -> float:
     return float(event.self_device_time_total)
 
 
-def _profiled(torch, fn, phase: str, out: Path) -> tuple[dict, list]:
+def _profiled(torch, fn, phase: str, out: Path,
+              cpu: bool = True) -> tuple[dict, list]:
     """``fn()`` under torch.profiler: (wall and device ms, the device's busy
     share, kernel launches; the profiler's rows), with the operator tables
-    written to ``out``."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    written to ``out``.  ``cpu=False`` records the device activity alone
+    (with the runtime's launch calls), which the profiler processes in a
+    fraction of the time where the host runs many operators."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if cpu:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -1657,6 +2010,9 @@ def _profiled(torch, fn, phase: str, out: Path) -> tuple[dict, list]:
     launches = sum(e.count for e in avgs
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaLaunchKernelExC"))
+    if not launches:       # no runtime rows recorded: the kernels that ran
+        launches = sum(e.count for e in avgs if _device_us(torch, e) > 0
+                       and not e.key.startswith(("Memcpy", "Memset")))
     out.mkdir(parents=True, exist_ok=True)
     (out / f"profile_{phase}.txt").write_text(
         avgs.table(sort_by="self_cpu_time_total", row_limit=40) + "\n"
@@ -2205,6 +2561,30 @@ def sharded_phase(torch, card: str, counts: dict) -> dict:
           f"{out['build_s']:.1f} s, vector store in {out['store_s']:.1f} s; "
           f"launches {json.dumps(counts['sharded_build'])} ({card})")
 
+    # the SPMD transport: one process a slot on the card, gloo between; the
+    # primaries of the first SPMD_RANKS shards as an index of their own.
+    # Its processes start now, in a thread that waits on them, and run
+    # beside the rest of the phase (their start was most of the check's
+    # time); their results are compared at the end of the phase
+    small = ShardedIndex(slots=sidx.slots[:SPMD_RANKS * R:R],
+                         offsets=sidx.offsets[:SPMD_RANKS * R:R],
+                         n_total=SPMD_RANKS * per,
+                         sizes=sidx.sizes[:SPMD_RANKS * R:R])
+    spmd = {}
+
+    def run_spmd():
+        t0 = time.perf_counter()
+        try:
+            spmd["ranks"] = spmd_search(small, stages[0], params,
+                                        quantized=True, dist_backend="gloo",
+                                        timeout_s=600)
+        except Exception as e:              # re-raised in the main thread
+            spmd["error"] = e
+        spmd["s"] = time.perf_counter() - t0
+
+    spmd_thread = threading.Thread(target=run_spmd, daemon=True)
+    spmd_thread.start()
+
     def drive(srv, q):
         t0 = time.perf_counter()
         srv.submit_many(q)
@@ -2402,16 +2782,12 @@ def sharded_phase(torch, card: str, counts: dict) -> dict:
         check(repair_counts.get(kernel, 0) > 0,
               f"the repair never launched {kernel}")
 
-    # the SPMD transport: one process a slot on the card, gloo between; the
-    # primaries of the first SPMD_RANKS shards as an index of their own
-    small = ShardedIndex(slots=sidx.slots[:SPMD_RANKS * R:R],
-                         offsets=sidx.offsets[:SPMD_RANKS * R:R],
-                         n_total=SPMD_RANKS * per,
-                         sizes=sidx.sizes[:SPMD_RANKS * R:R])
     t0 = time.perf_counter()
-    ranks = spmd_search(small, stages[0], params, quantized=True,
-                        dist_backend="gloo", timeout_s=300)
-    out["spmd_s"] = time.perf_counter() - t0
+    spmd_thread.join()
+    if "error" in spmd:
+        raise spmd["error"]
+    ranks = spmd["ranks"]
+    out["spmd_s"], out["spmd_wait_s"] = spmd["s"], time.perf_counter() - t0
     for merge in ("all_gather", "ring"):
         ids, d = make_sharded_search(merge, quantized=True)(small, stages[0],
                                                             params)
@@ -2422,7 +2798,9 @@ def sharded_phase(torch, card: str, counts: dict) -> dict:
     print(f"[sharded] SPMD: {SPMD_RANKS} ranks on the card (gloo over host "
           f"copies), shards 0-{SPMD_RANKS - 1} ({SPMD_RANKS * per} rows), "
           f"both merges equal the single controller's ids and dists on every "
-          f"rank; {out['spmd_s']:.1f} s with the processes' start ({card})")
+          f"rank; {out['spmd_s']:.1f} s with the processes' start, beside "
+          f"the rest of the phase, which then waited {out['spmd_wait_s']:.1f} "
+          f"s for it ({card})")
     return out
 
 
@@ -2437,6 +2815,10 @@ def main(argv=None) -> int:
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # cuBLAS's workspace as deterministic algorithms need it (the train
+    # phase runs under torch.use_deterministic_algorithms), set before any
+    # cuBLAS handle exists
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -2489,6 +2871,11 @@ def main(argv=None) -> int:
     lm_rows, lm = timed("lm", lm_phase, torch, card, counts,
                         ROOT / "build" / "profile")
     rows.update(lm_rows)
+    torch.cuda.empty_cache()
+    train_rows, train = timed("train", train_phase, torch, card, counts,
+                              ROOT / "build" / "profile")
+    rows.update(train_rows)
+    torch.cuda.empty_cache()
     moe_rows, moe = timed("moe", moe_phase, torch, card, counts,
                           ROOT / "build" / "profile")
     rows.update(moe_rows)
@@ -2507,6 +2894,7 @@ def main(argv=None) -> int:
     print(f"[paths] launch counts by path: {json.dumps(counts)}")
     print(f"[lm-summary] {json.dumps(lm)} card={card}")
     print(f"[moe-summary] {json.dumps(moe)} card={card}")
+    print(f"[train-summary] {json.dumps(train)} card={card}")
     print(f"[live-summary] {json.dumps(live)} card={card}")
     print(f"[resilient-summary] {json.dumps(resilient)} card={card}")
     print(f"[sharded-summary] {json.dumps(sharded)} card={card}")

@@ -10,10 +10,12 @@ files, so a step either package wrote restores in the other:
                                      checksums}
         arrays.npz                  the flattened tree, path-keyed
 
-A tree is nested dicts, lists and tuples whose leaves are tensors, numpy
-arrays or scalars.  It flattens as ``jax.tree_util`` flattens it there —
-dict keys sorted, depth first — to ``"/"``-joined keys, so the npz holds
-its arrays in the same order and the manifest is the same JSON.
+A tree is nested dicts, lists, tuples and dataclasses (``TrainState``)
+whose leaves are tensors, numpy arrays or scalars.  It flattens as
+``jax.tree_util`` flattens it there — dict keys sorted, a dataclass's
+fields in order as ``.<field>``, depth first — to ``"/"``-joined keys, so
+the npz holds its arrays in the same order and the manifest is the same
+JSON.
 
 Crash safety: a checkpoint is valid iff the non-``.tmp`` directory exists
 with a readable manifest; a process killed mid-save leaves only ``.tmp``
@@ -25,12 +27,18 @@ and walks back to the next-older step instead of raising.
 
 On restore every leaf becomes a tensor: on the template leaf's device if
 that leaf is a tensor, else on ``device`` (the JAX package's
-reshard-on-restore).  numpy has no bfloat16, so a bf16 tensor is refused
-with ``NotImplementedError``, never cast.
+reshard-on-restore).  numpy has no bfloat16: a bf16 tensor is stored as its
+raw 16 bits, numpy dtype ``|V2``, with manifest dtype ``"bfloat16"`` and
+the CRC over those bytes, which is what the reference's ``np.savez`` of a
+JAX bf16 array writes; either package's bf16 array restores here bitwise,
+to ``torch.bfloat16``.  (The reference's own ``restore_latest`` cannot cast
+``|V2`` back to bfloat16, ROADMAP C.9; its ``_load_verified`` reads the
+port's bytes.)
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -52,23 +60,34 @@ class CheckpointCorruptError(RuntimeError):
     """A single step failed integrity checks (caught by the walk-back)."""
 
 
+BF16_BYTES = np.dtype("V2")     # how numpy stores a bfloat16 array's bits
+
+
 def _host(leaf) -> np.ndarray:
-    """A leaf as a host numpy array (the bytes the manifest hashes)."""
+    """A leaf as a host numpy array (the bytes the manifest hashes); a bf16
+    tensor as its raw bits, dtype ``|V2``."""
     if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu()
         if leaf.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "a bfloat16 tensor has no numpy dtype to checkpoint as; "
-                "bf16 training state comes with ROADMAP A.9 (training)")
-        return leaf.detach().cpu().numpy()
+            return leaf.view(torch.int16).numpy().view(BF16_BYTES)
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == BF16_BYTES else str(arr.dtype)
 
 
 def _leaves(tree, path=()):
     """(path, leaf) pairs in ``jax.tree_util``'s order: dict keys sorted,
-    lists and tuples by index, depth first; ``None`` holds no leaf."""
+    lists and tuples by index, a dataclass's fields in order (``.name``),
+    depth first; ``None`` holds no leaf."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k], path + (k,))
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            yield from _leaves(getattr(tree, f.name), path + (f".{f.name}",))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _leaves(v, path + (i,))
@@ -89,6 +108,10 @@ def _unflatten(tree, new: dict):
     def walk(node, path):
         if isinstance(node, dict):
             return {k: walk(node[k], path + (k,)) for k in node}
+        if dataclasses.is_dataclass(node) and not isinstance(node, type):
+            return dataclasses.replace(node, **{
+                f.name: walk(getattr(node, f.name), path + (f".{f.name}",))
+                for f in dataclasses.fields(node)})
         if isinstance(node, (list, tuple)):
             out = [walk(v, path + (i,)) for i, v in enumerate(node)]
             return type(node)(out) if isinstance(node, tuple) else out
@@ -114,7 +137,7 @@ def save_checkpoint(directory: str, step: int, tree, keep: int = 3) -> str:
         "step": step,
         "n_arrays": len(flat),
         "keys": sorted(flat.keys()),
-        "dtypes": {k: str(v.dtype) for k, v in flat.items()},
+        "dtypes": {k: _dtype_name(v) for k, v in flat.items()},
         "shapes": {k: list(v.shape) for k, v in flat.items()},
         "checksums": {k: _checksum(v) for k, v in flat.items()},
     }
@@ -182,7 +205,13 @@ def _load_verified(path: str, verify: bool) -> dict[str, np.ndarray]:
 
 def _to_leaf(arr: np.ndarray, tmpl, dev: torch.device) -> torch.Tensor:
     """A restored array as a tensor of the template leaf's dtype, on its
-    device if it is a tensor, else on ``dev``."""
+    device if it is a tensor, else on ``dev``; ``|V2`` bytes as bf16."""
+    if arr.dtype == BF16_BYTES:
+        t = torch.from_numpy(np.array(arr).view(np.int16)).view(
+            torch.bfloat16)
+        if isinstance(tmpl, torch.Tensor):
+            return t.to(device=tmpl.device, dtype=tmpl.dtype)
+        return t.to(dev)
     if isinstance(tmpl, torch.Tensor):
         return torch.from_numpy(np.array(arr)).to(device=tmpl.device,
                                                   dtype=tmpl.dtype)

@@ -19,8 +19,9 @@ from typing import Any
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str                   # prefill (the only kind a port path runs)
+    kind: str                   # train | prefill (the kinds port paths run)
     dims: dict                  # family-specific dimensions
+    accum_steps: int = 1        # microbatch accumulation for train kinds
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,9 +58,16 @@ def get_arch(arch_id: str) -> ArchSpec:
     return _REGISTRY[arch_id]
 
 
-def lm_shapes() -> dict[str, ShapeSpec]:
-    """The reference's LM shapes that a port path runs: ``prefill_32k``
-    (``chip_smoke.py``'s prefill, its batch cut to 1).  The train and
-    decode shapes come with the slices that run them."""
-    return {"prefill_32k": ShapeSpec("prefill_32k", "prefill",
-                                     {"seq": 32768, "batch": 32})}
+def lm_shapes(accum_train: int = 8) -> dict[str, ShapeSpec]:
+    """The reference's LM shapes that a port path runs: ``train_4k``
+    (``launch.train`` and ``chip_smoke.py``'s train phase, the batch cut to
+    what one card holds) with the arch's microbatch accumulation, and
+    ``prefill_32k`` (``chip_smoke.py``'s prefill, its batch cut to 1).  The
+    decode shapes come with the slice that runs them."""
+    return {
+        "train_4k": ShapeSpec("train_4k", "train",
+                              {"seq": 4096, "batch": 256},
+                              accum_steps=accum_train),
+        "prefill_32k": ShapeSpec("prefill_32k", "prefill",
+                                 {"seq": 32768, "batch": 32}),
+    }

@@ -13,7 +13,11 @@ words become their ``int32`` view, bit for bit.
 ``ShardedIndex``, one ``index_from_numpy`` a slot.
 
 ``lm_params_from_numpy`` takes the reference LM's parameter tree as numpy
-arrays and returns the port's parameter dict on ``device``.
+arrays and returns the port's parameter dict on ``device``;
+``lm_params_to_numpy`` is its inverse, for any tree of the parameters'
+structure (gradients, AdamW moments, trained weights), so that a test
+compares the two packages' trees leaf for leaf.  ``train_state_from_numpy``
+carries a reference ``TrainState`` (its params, opt_state and step) across.
 
 Nothing here imports the JAX package; the caller converts.
 """
@@ -151,3 +155,64 @@ def lm_params_from_numpy(cfg, tree: dict, device="cuda") -> dict:
         "ln_f": _tensor(tree["ln_f"], dev),
         "layers": layers,
     }
+
+
+def _to_numpy(x: torch.Tensor) -> np.ndarray:
+    """A tensor as a host array; a bf16 one as the f32 array of the same
+    values (numpy has no bfloat16)."""
+    x = x.detach().cpu()
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+
+def lm_params_to_numpy(cfg, params: dict) -> dict:
+    """The reference's layout of a port LM tree (``lm_params_from_numpy``'s
+    inverse): ``embed``, ``unembed``, ``ln_f``, the unrolled
+    ``head_layers`` and ``scan``, ``moe_period`` sub-stacks whose row ``s``
+    of sub-stack ``j`` is layer ``first_dense + s·period + j``, as numpy
+    arrays (bf16 as f32 of the same values)."""
+    period = cfg.moe_period if cfg.is_moe else 1
+    layers = params["layers"]
+    if len(layers) != cfg.n_layers or cfg.n_scan_layers % period:
+        raise ValueError(f"{cfg.name}: {len(layers)} layers, not the "
+                         f"config's {cfg.n_layers} in periods of {period}")
+
+    def tree(node):
+        if isinstance(node, dict):
+            return {k: tree(v) for k, v in node.items()}
+        return _to_numpy(node)
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack([_to_numpy(n) for n in nodes])
+
+    scan = layers[cfg.first_dense:]
+    return {
+        "embed": _to_numpy(params["embed"]),
+        "unembed": _to_numpy(params["unembed"]),
+        "ln_f": _to_numpy(params["ln_f"]),
+        "head_layers": [tree(p) for p in layers[:cfg.first_dense]],
+        "scan": [stack(scan[j::period]) for j in range(period)],
+    }
+
+
+def train_state_from_numpy(cfg, params: dict, opt_state: dict, step,
+                           device="cuda"):
+    """A ``train.TrainState`` from a reference ``TrainState``'s fields as
+    numpy: its params and the AdamW moments ``m`` and ``v`` (each a tree of
+    the params' layout, in their own dtypes) through
+    ``lm_params_from_numpy``, the optimizer's and the state's steps as
+    int32 scalars."""
+    from .train import TrainState
+
+    dev = resolve_device(device)
+
+    def scalar(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32, device=dev)
+
+    return TrainState(
+        params=lm_params_from_numpy(cfg, params, device=dev),
+        opt_state={"m": lm_params_from_numpy(cfg, opt_state["m"], device=dev),
+                   "v": lm_params_from_numpy(cfg, opt_state["v"], device=dev),
+                   "step": scalar(opt_state["step"])},
+        step=scalar(step))

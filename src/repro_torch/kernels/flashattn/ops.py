@@ -1,5 +1,7 @@
 """Wrapper of the CUDA flash-attention kernels (``csrc/flash_attn_sm90.cu``
-for bf16, ``csrc/flash_attn.cu`` for float32).
+for bf16, ``csrc/flash_attn.cu`` for float32) and of their backward
+(``csrc/flash_attn_bwd.cuh``: ``flash_attn_bwd.cu`` for bf16,
+``flash_attn_bwd_f32.cu`` for float32).
 
 ``flash_attention`` replaces ``flash_attention_pallas``
 (``src/repro/kernels/flashattn/flashattn.py``) and its wrapper
@@ -18,7 +20,15 @@ any strides.  On a CPU tensor it runs the plain full-matrix version in
 ``ref.py`` on KV repeated to H heads.  Nothing else: no fallback hides the
 kernel.
 
-``LAUNCHES`` counts kernel launches; only a CUDA launch adds to it.
+``flash_attention_bwd`` gives dQ, dK and dV from q, k, v, the forward's
+output and its gradient (the kernel on a CUDA tensor, ``ref.attention_bwd_ref``
+on a CPU tensor), and ``attention`` is ``flash_attention`` made
+differentiable: ``FlashAttentionFn`` when a tensor needs a gradient, else
+exactly ``flash_attention``.  The Pallas kernel has no backward; the JAX
+package differentiates its jnp blockwise attention, whose gradient this is.
+
+``LAUNCHES`` counts kernel launches (a backward's three kernels count once);
+only a CUDA launch adds to it.
 """
 
 from __future__ import annotations
@@ -31,7 +41,7 @@ import torch
 from .. import _build
 from . import ref
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 COPIES = {"flash_attention": 0}            # bf16 inputs copied for TMA
 HEAD_DIMS = (16, 32, 64, 96, 128)          # the kernels' template instances
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -171,3 +181,87 @@ def sm90_probe(q, k, v, p) -> tuple:
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention (probe)")
     return s, o
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, causal: bool = True,
+                        window: Optional[int] = None) -> tuple:
+    """(dq [B,S,H,hd], dk, dv [B,S,KV,hd]) of ``flash_attention``'s output
+    ``o = flash_attention(q, k, v)`` under the gradient ``do`` [B,S,H,hd],
+    in the inputs' dtype; dk and dv summed over each KV head's group."""
+    _check(q, k, v, window)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"be q's shape {tuple(q.shape)}")
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise TypeError("o and do must have q's dtype")
+    if not (q.device == o.device == do.device):
+        raise ValueError("q, k, v, o and do must be on one device")
+    if q.device.type == "cpu":
+        return ref.attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                     window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_attention_bwd kernel for device "
+                         f"{q.device}")
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} is not one the kernel takes "
+                         f"{HEAD_DIMS}")
+    if B > _MAX_GRID_YZ or H > _MAX_GRID_YZ:
+        raise ValueError(f"B={B} or H={H} beyond what the kernel takes")
+    dq = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, S, KV, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    dsum = torch.empty_like(lse)
+    if q.dtype == torch.bfloat16:
+        fn = _build.load("flash_attn_bwd").flash_attn_bwd_bf16
+    else:
+        fn = _build.load("flash_attn_bwd_f32").flash_attn_bwd_f32
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + \
+        [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    strides = (ctypes.c_int64 * 20)(*(s for x in (q, k, v, o, do)
+                                      for s in x.stride()))
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                lse.data_ptr(), dsum.data_ptr(), B, S, H, KV, hd,
+                ctypes.addressof(strides), int(causal),
+                0 if window is None else int(window),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with its backward: the forward kernel, and
+    ``flash_attention_bwd`` on the saved q, k, v and output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o = flash_attention(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.to(o.dtype),
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True,
+              window: Optional[int] = None) -> torch.Tensor:
+    """``flash_attention``, differentiable in q, k and v: through
+    ``FlashAttentionFn`` when autograd records and one of them needs a
+    gradient, else exactly ``flash_attention`` (no tensor saved)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window)
+    return flash_attention(q, k, v, causal=causal, window=window)

@@ -1,12 +1,25 @@
-"""Plain full-matrix attention: the flash-attention kernel's plain version
-(the CPU path of ``ops.flash_attention``, and what the CUDA kernel is held
-against on the card).  Counterpart of ``repro.kernels.flashattn.ref``."""
+"""Plain full-matrix attention and its backward: the flash-attention
+kernels' plain versions (the CPU paths of ``ops.flash_attention`` and
+``ops.flash_attention_bwd``, and what the CUDA kernels are held against on
+the card).  ``attention_ref`` is the counterpart of
+``repro.kernels.flashattn.ref``; ``attention_bwd_ref`` has none there (the
+JAX package differentiates its attention with ``jax.grad``)."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+
+
+def _mask(S: int, causal: bool, window, device) -> torch.Tensor:
+    pos = torch.arange(S, device=device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    return mask
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -18,18 +31,51 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, S, H, hd = q.shape
     scale = 1.0 / math.sqrt(hd)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    pos = torch.arange(S, device=q.device)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= pos[:, None] >= pos[None, :]
-    if window is not None:
-        mask &= (pos[:, None] - pos[None, :]) < window
+    mask = _mask(S, causal, window, q.device)
     s = s.masked_fill(~mask, float("-inf"))
     p = torch.exp(s - s.amax(-1, keepdim=True))
     p = p.masked_fill(~mask, 0.0)
     p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return out.to(q.dtype)
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, causal: bool = True,
+                      window=None) -> tuple:
+    """The backward of attention by its explicit formulas on the full
+    matrices, in f32: q, o, do [B,S,H,hd], k, v [B,S,KV,hd] (query head h
+    reads KV head h // (H / KV)) → (dq [B,S,H,hd], dk, dv [B,S,KV,hd]) in
+    the inputs' dtype.
+
+    P comes from each row's log-sum-exp, D = rowsum(dO ∘ O) from the given
+    output, dS = P ∘ (dP − D) with dP = dO Vᵀ; dQ = dS K / √hd, dK = dSᵀ Q
+    / √hd and dV = Pᵀ dO, the last two summed over each KV head's group.
+    """
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qf, of, dof = q.float(), o.float(), do.float()
+    kf = k.float().repeat_interleave(G, dim=2)
+    vf = v.float().repeat_interleave(G, dim=2)
+    mask = _mask(S, causal, window, q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
+    p = p.masked_fill(~mask, 0.0)
+    del s
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    dsum = (dof * of).sum(-1).permute(0, 2, 1)[..., None]       # [B,H,S,1]
+    ds = p * (dp - dsum)
+    del dp
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    del ds
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(B, S, KV, G, hd).sum(3)
+    dv = dv.reshape(B, S, KV, G, hd).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # The bound that a bf16 output of the kernel is held to against the plain
@@ -51,4 +97,25 @@ def err_ratio(out: torch.Tensor, want: torch.Tensor) -> float:
     want = want.float()
     rms = want.square().mean(-1, keepdim=True).sqrt()
     lim = BF16_REL * want.abs() + BF16_ROW * rms
+    return float(((out.float() - want).abs() / lim.clamp_min(1e-30)).max())
+
+
+# The backward kernel's gradients are held to the same per-element bound,
+# plus a floor at 2^-16 of the whole gradient's RMS.  dS = P ∘ (dP − D)
+# cancels where a row's keys are few: the first row of a causal sequence
+# has one key, P = 1 and dP = D, so its dQ (and the last key's dK) is zero
+# in exact arithmetic and f32 rounding noise in both versions (~2^-23 of
+# |dP|); the row's own RMS is then that noise.  The floor is ~10x that
+# noise and 1/16 of the row term at the gradient's typical scale.
+GRAD_FLOOR = 2.0 ** -16
+
+
+def grad_err_ratio(out: torch.Tensor, want: torch.Tensor) -> float:
+    """max |out − want| / (BF16_REL·|want| + BF16_ROW·rms(want's row) +
+    GRAD_FLOOR·rms(want)) over every element of [B, S, heads, hd]
+    gradients, want in f32.  At most 1 when out is within the bound."""
+    want = want.float()
+    rms = want.square().mean(-1, keepdim=True).sqrt()
+    lim = (BF16_REL * want.abs() + BF16_ROW * rms
+           + GRAD_FLOOR * float(want.square().mean().sqrt()))
     return float(((out.float() - want).abs() / lim.clamp_min(1e-30)).max())

@@ -10,7 +10,8 @@ same seed: tests carry the reference's parameters across instead).
     convention (``x1, x2 = split(x, 2)``), angles in f32
   * ``flash_attention`` — the blockwise online-softmax attention of the
     reference on the CPU (or anywhere with ``backend="jnp"``), and the CUDA
-    flash-attention kernel on a CUDA tensor
+    flash-attention kernel on a CUDA tensor, with its backward kernel when
+    autograd needs one
   * ``decode_attention`` — one new token against a KV cache (plain PyTorch:
     it is jnp in the reference, not a Pallas kernel)
 """
@@ -74,14 +75,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, S, H, hd], k/v [B, S, KV, hd] → [B, S, H, hd] in q's dtype.
 
     ``backend="auto"``: the CUDA kernel on a CUDA tensor (its tiles are its
-    own; ``block_q``/``block_k`` are not read), the plain blockwise version
-    on a CPU tensor.  ``backend="jnp"``: the plain blockwise version on any
-    device.
+    own; ``block_q``/``block_k`` are not read), differentiable through the
+    backward kernel (``flash_ops.attention``), and the plain blockwise
+    version on a CPU tensor, which autograd differentiates as ``jax.grad``
+    differentiates the reference's.  ``backend="jnp"``: the plain blockwise
+    version on any device.
     """
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if backend == "auto" and q.device.type != "cpu":
-        return flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+        return flash_ops.attention(q, k, v, causal=causal, window=window)
     return _blockwise_attention(q, k, v, causal, window, block_q, block_k)
 
 

@@ -7,6 +7,7 @@ Entry points (plain functions over a parameter dict):
   init(cfg, gen, device)                        → params
   forward(cfg, params, tokens, backend)         → logits [B, S, V] f32
   forward_aux(cfg, params, tokens, backend)     → logits, aux
+  loss_fn(cfg, params, tokens, targets, remat, backend) → loss, metrics
   prefill(cfg, params, tokens, backend)         → last-position logits [B, V]
   prefill_aux(cfg, params, tokens, backend)     → last-position logits, aux
   init_cache(cfg, batch, max_seq, device=...)   → KV cache
@@ -14,8 +15,12 @@ Entry points (plain functions over a parameter dict):
 
 ``aux`` is the reference's: ``lb_loss``, ``z_loss`` and ``frac_dropped``
 of ``moe.moe_apply`` summed over the MoE layers and divided by their
-number (zeros for a dense model); ``forward_aux`` is what a training loss
-adds them from, as the reference's ``loss_fn`` does.
+number (zeros for a dense model); ``loss_fn`` adds ``lb_coef · lb_loss +
+z_coef · z_loss`` of a MoE model to the mean next-token NLL, as the
+reference's does.  With ``remat`` (the default, as the reference's
+``forward``) each layer runs under ``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint``: its activations are recomputed in the
+backward, and no value changes.
 
 Differences from the reference, none of which changes a result:
 
@@ -25,7 +30,10 @@ Differences from the reference, none of which changes a result:
   ``head_layers`` and ``moe_period`` scan stacks ``[n_super, ...]``;
   ``interop.lm_params_from_numpy`` carries a reference tree across.
 * ``hints.constrain`` (the reference's sharding hints) has no meaning on
-  one card and is left out, and so is ``jax.checkpoint`` (no training here).
+  one card and is left out.  Remat checkpoints each layer, where the
+  reference checkpoints each scan period (``moe_period`` layers).
+* ``loss_fn`` reads each target's logit with a gather, where the reference
+  sums a one-hot product (its vocab-parallel form): the same f32 value.
 * ``prefill`` unembeds only the last position, where the reference computes
   ``[B, S, V]`` logits and keeps the last row; the rows are independent.
 * ``decode_step`` writes the new K/V into the cache tensors in place (the
@@ -49,6 +57,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.types import resolve_device
 from .common import apply_rope, decode_attention, dense_init, flash_attention
@@ -81,7 +90,7 @@ class LMConfig:
     window: Optional[int] = None     # sliding-window size
     window_period: int = 0           # see the module docstring (C.6)
     dtype: torch.dtype = torch.bfloat16
-    # loss weights (a training loss's; no port path reads them yet)
+    # loss weights (loss_fn's MoE aux terms)
     lb_coef: float = 0.01
     z_coef: float = 1e-3
 
@@ -229,16 +238,30 @@ def _ffn(cfg: LMConfig, p: dict, x: torch.Tensor,
     return x + out
 
 
+def _layer(cfg: LMConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
+           window: Optional[int], backend: str):
+    """One layer → (x, its MoE aux, or None for a dense layer)."""
+    x = _attn(cfg, p, x, positions, window, backend)
+    aux = ({key: torch.zeros((), device=x.device) for key in AUX_KEYS}
+           if "moe" in p else None)
+    return _ffn(cfg, p, x, aux), aux
+
+
 def _hidden(cfg: LMConfig, params: dict, tokens: torch.Tensor,
-            backend: str) -> tuple[torch.Tensor, dict]:
-    """tokens int[B, S] → (the final-normed hidden states [B, S, d], aux)."""
+            backend: str, remat: bool = False) -> tuple[torch.Tensor, dict]:
+    """tokens int[B, S] → (the final-normed hidden states [B, S, d], aux);
+    with ``remat`` each layer is checkpointed."""
     B, S = tokens.shape
     x = params["embed"][tokens.long()]
     positions = torch.arange(S, device=x.device).expand(B, S)
     aux = {key: torch.zeros((), device=x.device) for key in AUX_KEYS}
     for i, p in enumerate(params["layers"]):
-        x = _attn(cfg, p, x, positions, _layer_window(cfg, i), backend)
-        x = _ffn(cfg, p, x, aux)
+        args = (cfg, p, x, positions, _layer_window(cfg, i), backend)
+        x, a = (checkpoint(_layer, *args, use_reentrant=False) if remat
+                else _layer(*args))
+        if a is not None:
+            for key in AUX_KEYS:
+                aux[key] = aux[key] + a[key]
     n_moe = max(cfg.n_moe_layers(), 1)
     return (rms_norm(x, params["ln_f"]),
             {key: v / n_moe for key, v in aux.items()})
@@ -257,6 +280,23 @@ def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor,
             backend: str = "auto") -> torch.Tensor:
     """tokens int[B, S] → logits f32[B, S, V]."""
     return forward_aux(cfg, params, tokens, backend)[0]
+
+
+def loss_fn(cfg: LMConfig, params: dict, tokens: torch.Tensor,
+            targets: torch.Tensor, remat: bool = True,
+            backend: str = "auto") -> tuple[torch.Tensor, dict]:
+    """The reference's training loss: the mean over [B, S] of each
+    position's logsumexp of the f32 logits less its target's logit, plus
+    ``lb_coef · lb_loss + z_coef · z_loss`` for a MoE model → (loss,
+    {"nll", "lb_loss", "z_loss", "frac_dropped"})."""
+    x, aux = _hidden(cfg, params, tokens, backend, remat)
+    logits = (x @ params["unembed"]).float()
+    nll = (torch.logsumexp(logits, dim=-1)
+           - logits.gather(-1, targets.long()[..., None])[..., 0]).mean()
+    loss = nll
+    if cfg.is_moe:
+        loss = loss + cfg.lb_coef * aux["lb_loss"] + cfg.z_coef * aux["z_loss"]
+    return loss, {"nll": nll, **aux}
 
 
 def prefill_aux(cfg: LMConfig, params: dict, tokens: torch.Tensor,

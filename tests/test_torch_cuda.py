@@ -1043,3 +1043,113 @@ def test_moe_bf16_prefill_on_card_is_deterministic(cuda):
     second = tf.prefill(cfg, params, toks)
     assert torch.isfinite(first).all()
     torch.testing.assert_close(second, first, rtol=0, atol=0)
+
+
+# (B, S, H, KV, causal, window) of the backward kernel: one row, a ragged
+# tile, bidirectional, GQA 3 and 4, windows inside and across 64-row tiles,
+# S past a tile at 257 and 333, bidirectional with a window
+FLASH_BWD_CASES = [(1, 1, 2, 1, True, None), (2, 100, 6, 3, True, None),
+                   (1, 100, 4, 4, False, None), (1, 130, 4, 2, True, 7),
+                   (1, 257, 8, 2, True, 65), (2, 200, 4, 1, True, None),
+                   (1, 333, 6, 2, False, 65), (1, 300, 3, 3, True, 64)]
+
+
+def _bwd_inputs(B, S, H, KV, hd, dtype, device, seed=0):
+    """q, k, v, the forward kernel's output o and a gradient do."""
+    q, k, v = _flash_inputs(B, S, H, KV, hd, dtype, device, seed=seed)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    do = torch.randn((B, S, H, hd), generator=g, device=device).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 64, 128])
+def test_flash_attention_bwd_kernel_on_card(cuda, hd, dtype):
+    """dQ, dK and dV of the kernel against ``attention_bwd_ref`` on the same
+    values in f32: in f32 to rtol 1e-4 / atol 1e-5 (the same f32 math in
+    another order, on O(1) inputs), in bf16 to ``grad_err_ratio``'s bound
+    (each element rounded once from an f32 sum).  At S = 1 dQ and dK are
+    zero in exact arithmetic (one key: P = 1, dP = D) and f32 noise in
+    both versions: they are held to 1e-5."""
+    for B, S, H, KV, causal, window in FLASH_BWD_CASES:
+        q, k, v, do = _bwd_inputs(B, S, H, KV, hd, dtype, cuda, seed=S + hd)
+        o = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+        before = flash_ops.LAUNCHES["flash_attention_bwd"]
+        got = flash_ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                            window=window)
+        torch.cuda.synchronize()
+        assert flash_ops.LAUNCHES["flash_attention_bwd"] == before + 1
+        want = flash_ref.attention_bwd_ref(
+            q.float(), k.float(), v.float(), o.float(), do.float(),
+            causal=causal, window=window)
+        for name, out, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+            assert out.dtype == dtype and out.shape == x.shape, name
+            assert torch.isfinite(out).all(), name
+            if S == 1 and name != "dv":
+                assert float(out.float().abs().max()) <= 1e-5, name
+            elif dtype == torch.float32:
+                torch.testing.assert_close(out, w, rtol=1e-4, atol=1e-5)
+            else:
+                ratio = flash_ref.grad_err_ratio(out, w)
+                assert ratio <= 1.0, (name, B, S, H, KV, causal, window,
+                                      ratio)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_is_deterministic(cuda, dtype):
+    """Two backward launches on the same inputs give the same bits (no
+    atomics)."""
+    q, k, v, do = _bwd_inputs(2, 1000, 6, 2, 64, dtype, cuda, seed=3)
+    o = flash_ops.flash_attention(q, k, v)
+    first = flash_ops.flash_attention_bwd(q, k, v, o, do)
+    second = flash_ops.flash_attention_bwd(q, k, v, o, do)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_attention_fn_gradient_on_card(cuda):
+    """torch.autograd.grad through ``common.flash_attention`` on the card
+    launches the backward kernel once and agrees with autograd through the
+    plain blockwise attention (f32: rtol 1e-4 / atol 1e-5); without a tensor that needs a gradient the call launches
+    only the forward."""
+    q, k, v, do = _bwd_inputs(2, 300, 6, 2, 64, torch.float32, cuda, seed=5)
+    before = dict(flash_ops.LAUNCHES)
+    out = common.flash_attention(q, k, v, window=100)
+    assert flash_ops.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"]
+    assert out.grad_fn is None
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    got = torch.autograd.grad(
+        common.flash_attention(*leaves, window=100), leaves, do)
+    assert flash_ops.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(
+        common.flash_attention(*plain, window=100, backend="jnp"), plain, do)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_refuses_what_the_kernel_does_not_take(
+        cuda, monkeypatch):
+    """A head_dim with no kernel instance raises rather than running the
+    plain backward; a refused launch raises and is not counted."""
+    q, k, v, do = _bwd_inputs(1, 16, 2, 1, 48, torch.float32, cuda)
+    before = flash_ops.LAUNCHES["flash_attention_bwd"]
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_ops.flash_attention_bwd(q, k, v, do, do)
+
+    class Refused:
+        @staticmethod
+        def flash_attn_bwd_f32(*args):
+            return 9                    # cudaErrorInvalidConfiguration
+
+    q, k, v, do = _bwd_inputs(1, 16, 2, 1, 64, torch.float32, cuda)
+    monkeypatch.setattr(_build, "load", lambda name: Refused())
+    with pytest.raises(RuntimeError, match="flash_attention_bwd"):
+        flash_ops.flash_attention_bwd(q, k, v, do, do)
+    assert flash_ops.LAUNCHES["flash_attention_bwd"] == before

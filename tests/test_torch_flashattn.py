@@ -14,10 +14,20 @@ bound of ``ref.err_ratio``, whose reach is checked here on the kernels'
 arithmetic: the CUDA-core kernel's (p and sums in f32, the output rounded
 to bf16) and the tensor-core kernel's (bf16 products, p split into two
 bf16 terms for the PV product, f32 sums, the output rounded once).
+
+The backward: ``ref.attention_bwd_ref`` (the backward kernel's plain
+version), the CPU backward of ``ops.FlashAttentionFn`` and autograd through
+the port's blockwise attention are held against ``jax.grad`` of the
+reference's blockwise ``flash_attention`` (whose scan the JAX package
+trains through) to rtol/atol 1e-4 in f32 (the same gradient by explicit
+formulas against autodiff of an online softmax, summed in other orders);
+``ref.grad_err_ratio``'s reach is checked on the backward kernel's
+arithmetic (f32 sums, each gradient rounded to bf16 once).
 """
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -185,3 +195,82 @@ def test_flash_ops_check_their_inputs():
                                   k[:, :, :2].half())
     with pytest.raises(ValueError, match="window"):
         flash_ops.flash_attention(q, k[:, :, :2], k[:, :, :2], window=0)
+
+
+# CASES and a ragged S whose blocks divide neither S nor each other
+BWD_CASES = CASES + [(1, 77, 4, 2, 16, True, 9, 20, 12)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window,bq,bk", BWD_CASES)
+def test_attention_bwd_matches_jax_grad(B, S, H, KV, hd, causal, window, bq,
+                                        bk):
+    """dq, dk and dv (GQA groups summed) of the plain backward, of the
+    autograd Function's CPU backward and of autograd through the port's
+    blockwise attention, against ``jax.vjp`` of the reference's blockwise
+    attention under the same cotangent."""
+    q, k, v = _qkv(B, S, H, KV, hd, seed=S + H + 2)
+    do = np.random.default_rng(S).normal(size=q.shape).astype(np.float32)
+    out, vjp = jax.vjp(lambda a, b, c: ref_blockwise(
+        a, b, c, causal=causal, window=window, block_q=bq, block_k=bk),
+        *(jnp.asarray(x) for x in (q, k, v)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    before = flash_ops.LAUNCHES["flash_attention_bwd"]
+    o = flash_ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(o.numpy(), np.asarray(out), rtol=2e-5,
+                               atol=2e-5)
+    plain = flash_ref.attention_bwd_ref(tq, tk, tv, o, tdo, causal=causal,
+                                        window=window)
+    leaves = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+    fn = torch.autograd.grad(flash_ops.attention(
+        *leaves, causal=causal, window=window), leaves, tdo)
+    leaves = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+    blockwise = torch.autograd.grad(common.flash_attention(
+        *leaves, causal=causal, window=window, block_q=bq, block_k=bk),
+        leaves, tdo)
+    assert flash_ops.LAUNCHES["flash_attention_bwd"] == before
+    for got in (plain, fn, blockwise):
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == torch.float32
+            np.testing.assert_allclose(g.numpy(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("S,window", [(1000, None), (1000, 100), (321, 7)])
+def test_grad_bound_holds_rounding_and_sees_a_cut_tile(S, window):
+    """The backward kernel's arithmetic (f32 sums, each gradient rounded to
+    bf16 once) stays within ``grad_err_ratio``'s bound against the plain
+    backward in f32 on the same bf16 values; the last 64-row query tile cut
+    from the backward (its dO zeroed) breaks it in each of dq, dk and dv,
+    and a window one 64-key tile short (the first key tile cut from the last
+    rows, causal only) breaks it in dq."""
+    q, k, v, do = (torch.from_numpy(x).bfloat16()
+                   for x in _qkv(1, S, 4, 2, 64, seed=S) +
+                   (np.random.default_rng(S).normal(
+                       size=(1, S, 4, 64)).astype(np.float32),))
+    o = flash_ops.flash_attention(q, k, v, window=window)
+    f32 = [x.float() for x in (q, k, v, o, do)]
+    want = flash_ref.attention_bwd_ref(*f32, window=window)
+    for g, w in zip(flash_ref.attention_bwd_ref(q, k, v, o, do,
+                                                window=window), want):
+        assert g.dtype == torch.bfloat16
+        assert flash_ref.grad_err_ratio(g, w) <= 1.0
+    cut = do.clone()
+    cut[:, -64:] = 0
+    for g, w in zip(flash_ref.attention_bwd_ref(q, k, v, o, cut,
+                                                window=window), want):
+        assert flash_ref.grad_err_ratio(g, w) > 1.0
+    if window is None:
+        dq = flash_ref.attention_bwd_ref(q, k, v, o, do, window=S - 64)[0]
+        assert flash_ref.grad_err_ratio(dq, want[0]) > 1.0
+
+
+def test_flash_attention_bwd_checks_its_inputs():
+    q = torch.zeros(1, 8, 4, 16)
+    k = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="shape"):
+        flash_ops.flash_attention_bwd(q, k, k, q[:, :4], q)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_ops.flash_attention_bwd(q, k, k, q, q.double())
+    with pytest.raises(ValueError, match="multiple"):
+        flash_ops.flash_attention_bwd(q, k[:, :, :1].expand(1, 8, 3, 16),
+                                      k[:, :, :1].expand(1, 8, 3, 16), q, q)

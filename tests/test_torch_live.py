@@ -214,8 +214,14 @@ def test_checkpoint_restores_onto_template_devices_and_dtypes(tmp_path):
     assert step == 1
     assert got["x"].dtype == torch.int64 and got["y"].dtype == torch.float32
     assert got["x"].tolist() == list(range(6))
-    with pytest.raises(NotImplementedError, match="A.9"):
-        save_checkpoint(d, 2, {"x": torch.zeros(2, dtype=torch.bfloat16)})
+    # bf16 is stored as its raw 16 bits (numpy |V2, manifest "bfloat16")
+    # and restored to bf16 bit for bit
+    x = torch.tensor([1.0, -2.5, 3.1415, 1e-20]).to(torch.bfloat16)
+    save_checkpoint(d, 2, {"x": x})
+    step, got = restore_latest(d, {"x": torch.zeros(4, dtype=torch.bfloat16)},
+                               device="cpu")
+    assert step == 2 and got["x"].dtype == torch.bfloat16
+    assert torch.equal(got["x"].view(torch.int16), x.view(torch.int16))
 
 
 def test_checkpoint_manager_saves_host_copies(tmp_path):
