@@ -175,13 +175,17 @@ non-zero and prints no result line):
                broken on purpose must break the logit bound;
 14. train   — smollm-135m trained at its published widths in bf16
                (``train_4k``'s sequence of 4,096; its batch of 256 cut to
-               8 and its accumulation of 4 to 2): the backward kernel
-               (``flash_attn_bwd.cu``) against ``attention_bwd_ref`` in f32
-               at q [4, 4096, 9, 64], dq, dk and dv each within
+               8 and its accumulation of 4 to 2): the backward kernels
+               (``flash_attn_bwd_sm90.cu``, on the tensor cores from the
+               forward's lse) against ``attention_bwd_ref`` in f32 at q
+               [4, 4096, 9, 64], dq, dk and dv each within
                ``ref.grad_err_ratio``'s bound, a query tile cut and a
                window one key tile short breaking it, timed beside its
-               plain version and SDPA's backward, and the forward kernel's
-               row at that shape; ``loss_fn``'s gradients with the kernels
+               plain version and SDPA's backward (at most
+               ``FLASH_BWD_MAX_SDPA_RATIO`` times its time), their
+               registers, spills, shared memory and HGMMA count, and the
+               forward kernel's row at that shape; ``loss_fn``'s gradients
+               with the kernels
                against the plain attention's on one microbatch (the
                largest per-leaf relative error within ``TRAIN_GRAD_TOL``,
                every layer windowed breaking it); ``TRAIN_STEPS`` steps of
@@ -297,6 +301,8 @@ DISPATCH_TAGS = ("sort", "scatter", "gather", "searchsorted")
 # The bf16 flash kernel at the prefill's shape may take at most this many
 # times SDPA's time in the same run (the tensor-core redesign's target)
 FLASH_MAX_SDPA_RATIO = 4.0
+# and its backward at the train step's shape as many times SDPA's backward
+FLASH_BWD_MAX_SDPA_RATIO = 4.0
 # kernel names of the dense products (cuBLAS's GEMM / GEMV kernels) in a
 # profile of the prefill
 GEMM_TAGS = ("gemm", "gemv", "nvjet", "xmma")
@@ -317,7 +323,8 @@ TRAIN_GRAD_TOL = 0.042
 # controls: every layer windowed on purpose (window_period 2 windows every
 # layer of a dense model, C.6)
 TRAIN_CONTROL_WINDOWS = (4096 // 2, 4096 - 64)
-BWD_KERNELS = ("bwd_prep_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel")
+# the bf16 backward's kernels (flash_attn_bwd_sm90.cu): D, dK / dV, dQ
+BWD_KERNELS = ("bwd_dsum_sm90", "bwd_dkdv_sm90", "bwd_dq_sm90")
 
 # the live phase's op stream on the served index: (op, argument); an insert
 # takes clustered_vectors(LIVE_INSERT, 128, 48, seed), "delete" LIVE_DELETE
@@ -1320,7 +1327,8 @@ def flash_rows(torch, card: str, cfg, S: int, path: str = "lm_prefill",
           f"{ms} ms, over {FLASH_MAX_SDPA_RATIO}x SDPA's {library_ms} ms")
     if extras:
         print(f"[kernel] flash_attention bf16 hd={hd} instance: "
-              f"{json.dumps(flash_ops.sm90_resources(hd))}; {sass_count()} "
+              f"{json.dumps(flash_ops.sm90_resources(hd))}; "
+              f"{sass_count('flash_attn_sm90')} "
               f"HGMMA instructions in its library; ptxas: "
               f"{ptxas_report(hd)}")
     del q, k, v, out, lib
@@ -1328,9 +1336,9 @@ def flash_rows(torch, card: str, cfg, S: int, path: str = "lm_prefill",
     return {("flash_attention", path): row}
 
 
-def sass_count(op: str = "HGMMA") -> str:
-    """How many ``op`` instructions the tensor-core flash library holds
-    (``cuobjdump -sass``), or why that is not known."""
+def sass_count(lib: str, op: str = "HGMMA") -> str:
+    """How many ``op`` instructions the library built from ``csrc/<lib>.cu``
+    holds (``cuobjdump -sass``), or why that is not known."""
     import shutil
 
     from repro_torch.kernels import _build
@@ -1338,21 +1346,21 @@ def sass_count(op: str = "HGMMA") -> str:
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return "unknown (no cuobjdump)"
-    sass = subprocess.run([tool, "-sass", str(_build.library_path(
-        "flash_attn_sm90"))], capture_output=True, text=True, timeout=120)
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(lib))],
+                          capture_output=True, text=True, timeout=120)
     if sass.returncode != 0:
         return f"unknown (cuobjdump exit {sass.returncode})"
     return str(sum(op in line for line in sass.stdout.splitlines()))
 
 
 def ptxas_report(hd: int, lib: str = "flash_attn_sm90",
-                 kernels: tuple = ("flash_fwd_sm90",), suffix: str = "") -> str:
+                 kernels: tuple = ("flash_fwd_sm90",)) -> str:
     """ptxas's lines on the bf16 instances for ``hd`` of ``kernels`` in
     ``lib`` (registers, spills, serialised wgmma) from its build log."""
     from repro_torch.kernels import _build
 
     lines = _build.build_log(lib).splitlines()
-    tags = [f"{k}ILi{hd}E{suffix}" for k in kernels]
+    tags = [f"{k}ILi{hd}E" for k in kernels]
     keep = [ln.strip() for i, ln in enumerate(lines)
             if any(tag in ln or any(tag in p for p in lines[max(0, i - 2):i])
                    for tag in tags)]
@@ -1565,14 +1573,16 @@ def event_ms(torch, fn, reps: int = 5) -> float:
 
 
 def flash_bwd_row(torch, card: str, cfg, S: int, B: int, path: str) -> dict:
-    """The backward kernel at the train step's attention shape (``B``
-    sequences of S, ``cfg``'s heads) against ``attention_bwd_ref`` in f32 on
-    the same bf16 values (dq, dk and dv each within ``grad_err_ratio``'s
-    bound); two controls must break it: the last 64-row query tile cut from
-    the backward (its dO zeroed) in each of dq, dk and dv, and a window one
-    64-key tile short in dq.  Timed beside its plain version and SDPA's
-    backward through autograd (the library yardstick, never called by the
-    port)."""
+    """The backward kernels at the train step's attention shape (``B``
+    sequences of S, ``cfg``'s heads), from the forward kernel's output and
+    lse, against ``attention_bwd_ref`` in f32 on the same bf16 values (dq,
+    dk and dv each within ``grad_err_ratio``'s bound); two controls must
+    break it: the last 64-row query tile cut from the backward (its dO
+    zeroed) in each of dq, dk and dv, and a window one 64-key tile short in
+    dq.  Timed beside its plain version and SDPA's backward through
+    autograd (the library yardstick, never called by the port), and held
+    to at most ``FLASH_BWD_MAX_SDPA_RATIO`` times the latter; its
+    libraries' wgmma (SASS ``HGMMA``) count must not be 0."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -1584,17 +1594,17 @@ def flash_bwd_row(torch, card: str, cfg, S: int, B: int, path: str) -> dict:
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q, k, v, do = [torch.randn((B, S, n, hd), generator=g, device=dev)
                    .to(torch.bfloat16) for n in (H, KV, KV, H)]
-    o = flash_ops.flash_attention(q, k, v)
-    got = flash_ops.flash_attention_bwd(q, k, v, o, do)
+    o, lse = flash_ops.flash_attention(q, k, v, return_lse=True)
+    got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse=lse)
     want = flash_ref.attention_bwd_ref(*(x.float() for x in (q, k, v, o, do)))
     ratios = [flash_ref.grad_err_ratio(a, w) for a, w in zip(got, want)]
     err = max(float((a.float() - w).abs().max()) for a, w in zip(got, want))
     cut = do.clone()
     cut[:, -64:] = 0
     tile_cut = [flash_ref.grad_err_ratio(a, w) for a, w in zip(
-        flash_ops.flash_attention_bwd(q, k, v, o, cut), want)]
+        flash_ops.flash_attention_bwd(q, k, v, o, cut, lse=lse), want)]
     short = flash_ref.grad_err_ratio(flash_ops.flash_attention_bwd(
-        q, k, v, o, do, window=S - 64)[0], want[0])
+        q, k, v, o, do, window=S - 64, lse=lse)[0], want[0])
     del want, got, cut
     names = ("dq", "dk", "dv")
     print(f"[train] flash_attention_bwd [{B},{S},{H}/{KV},{hd}] bf16 causal "
@@ -1608,7 +1618,7 @@ def flash_bwd_row(torch, card: str, cfg, S: int, B: int, path: str) -> dict:
     check(min(tile_cut) > 1.0 and short > 1.0, f"the gradient bound does not "
           f"see a cut tile: {tile_cut}, {short}")
     ms = device_ms(torch, lambda: flash_ops.flash_attention_bwd(
-        q, k, v, o, do), reps=5)
+        q, k, v, o, do, lse=lse), reps=5)
     plain_ms = device_ms(torch, lambda: flash_ref.attention_bwd_ref(
         q, k, v, o, do), reps=2)
     leaves = [x.detach().transpose(1, 2).requires_grad_(True)
@@ -1623,10 +1633,11 @@ def flash_bwd_row(torch, card: str, cfg, S: int, B: int, path: str) -> dict:
     del lib, leaves
     pairs = S * (S + 1) // 2
     flops = 10 * hd * pairs * H * B        # 2.5x the forward's products
-    nbytes = 2 * B * S * (4 * H * hd + 4 * KV * hd)   # q k v o dO; dq dk dv
+    # q k v o dO and the f32 lse read; dq dk dv written
+    nbytes = 2 * B * S * (4 * H * hd + 4 * KV * hd) + 4 * B * H * S
     bound_ms, bound_by = bound(nbytes, flops, BF16_TC_FLOP_PER_S)
     row = dict(name="flash_attention_bwd", route="cuda",
-               source="src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
+               source="src/repro_torch/kernels/csrc/flash_attn_bwd_sm90.cu",
                replaces="src/repro/models/common.py:74",
                note="no Pallas backward: the JAX package trains through "
                     "jax.grad of its jnp blockwise attention",
@@ -1639,9 +1650,16 @@ def flash_bwd_row(torch, card: str, cfg, S: int, B: int, path: str) -> dict:
           f"{library_ms:.4f}; {flops / ms / 1e9:.1f} TFLOP/s, "
           f"{bound_ms / ms:.4f} of the bound, {ms / library_ms:.2f}x SDPA's "
           f"backward ({card})")
-    print(f"[kernel] flash_attention_bwd bf16 hd={hd}: ptxas: "
-          + ptxas_report(hd, "flash_attn_bwd", BWD_KERNELS, "13__nv_bfloat16"))
-    del q, k, v, o, do
+    check(ms <= FLASH_BWD_MAX_SDPA_RATIO * library_ms, f"flash_attention_bwd "
+          f"takes {ms} ms, over {FLASH_BWD_MAX_SDPA_RATIO}x SDPA's backward's "
+          f"{library_ms} ms")
+    hgmma = sass_count("flash_attn_bwd_sm90")
+    print(f"[kernel] flash_attention_bwd bf16 hd={hd} instance: "
+          f"{json.dumps(flash_ops.sm90_bwd_resources(hd))}; {hgmma} HGMMA "
+          f"instructions in its library; ptxas: "
+          + ptxas_report(hd, "flash_attn_bwd_sm90", BWD_KERNELS))
+    check(hgmma != "0", "the backward's library holds no wgmma (HGMMA)")
+    del q, k, v, o, do, lse
     torch.cuda.empty_cache()
     return {("flash_attention_bwd", path): row}
 

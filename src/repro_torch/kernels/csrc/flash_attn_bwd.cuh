@@ -1,6 +1,8 @@
 // Flash-attention backward: dQ, dK and dV of causal / sliding-window /
-// bidirectional softmax attention with grouped KV heads, for bf16 or float32
-// inputs, all arithmetic in float32 on the CUDA cores.
+// bidirectional softmax attention with grouped KV heads, for float32
+// inputs, all arithmetic in float32 on the CUDA cores.  The bf16 backward
+// runs on the tensor cores from the forward's log-sum-exp
+// (flash_attn_bwd_sm90.cu).
 //
 //   s[b, h, i, t] = q[b, i, h, :] . k[b, t, h / G, :] / sqrt(hd)   (masked)
 //   P = softmax_t(s),  o = P v,  dO = dL/do
@@ -13,28 +15,22 @@
 // causal, and i - t < window when a window is given.  q, o and dO are
 // [B, S, H, hd] and k, v [B, S, KV, hd] with G = H / KV, read in place
 // through their element strides; dQ, dK and dV are new contiguous tensors of
-// the inputs' dtype, each element rounded once from its float32 sum.
+// the inputs' dtype.
 //
 // Replaces no TPU kernel: flash_attention_pallas (src/repro/kernels/
 // flashattn/flashattn.py) has no backward, and the JAX package trains
 // through jax.grad of the jnp blockwise attention (src/repro/models/
 // common.py: flash_attention).  This is the port's counterpart of that
-// autodiff, behind a torch.autograd.Function whose forward is the flash
-// kernel (flash_attn_sm90.cu for bf16, flash_attn.cu for float32).
+// autodiff for float32, behind a torch.autograd.Function whose forward is
+// the flash kernel flash_attn.cu.
 //
-// Bound on the card: operations.  At the train step's shape (B = 4,
-// S = 4,096, 9 heads over 3 KV heads, hd = 64, causal) the five products
-// of the backward (S again, dP, dV, dQ, dK) are 2.5x the forward's
-// 4 hd S(S+1)/2 H B = 7.7e10, 1.9e11 operations: 0.2 ms at the bf16
-// tensor-core rate, against 0.05 GB of inputs and outputs.  This design
-// runs them on the CUDA cores in float32 and recomputes S three times and
-// dP twice (8 products, 3.1e11 operations); its tensor-core redesign, with
-// the forward writing the log-sum-exp, is later work.
+// Bound on the card: operations.  The five products of the backward (S
+// again, dP, dV, dQ, dK) are 2.5x the forward's 4 hd S(S+1)/2 H B
+// operations (at causal masking).  This design runs them on the CUDA cores
+// in float32 and recomputes S three times and dP twice (8 products).
 //
-// The kernels live in this header; flash_attn_bwd.cu instantiates them
-// for bf16 and flash_attn_bwd_f32.cu for float32, two sources that nvcc
-// builds side by side (with all 30 instances in one source, the build of
-// every kernel took 22.4 s on an H100's host, against 6.6 s without it).
+// The kernels live in this header (templates on the element type);
+// flash_attn_bwd_f32.cu instantiates them for float32.
 //
 // Design, three kernels on one stream, no atomics (a step is the same bits
 // on every run):
@@ -60,7 +56,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -77,9 +72,7 @@ struct Strides {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 __device__ __forceinline__ bool visible(int i, int t, int S, int causal, int window) {
   return i < S && t < S && (!causal || i >= t) && (window <= 0 || i - t < window);

@@ -55,18 +55,14 @@
 //    ~1.5% of their row's RMS; the two terms keep the output within half a
 //    bf16 ulp of the f32 plain version.  The row sum l is taken from the
 //    f32 p.  This costs 1.5x the tensor-core work of a one-term P.
-//  * Epilogue: o / l, rounded to bf16 once, stored straight from registers.
+//  * Epilogue: o / l, rounded to bf16 once, stored straight from registers,
+//    and, where the caller asks for it (training), each row's log-sum-exp
+//    m + log2(l) in f32, which the backward (flash_attn_bwd_sm90.cu) reads
+//    instead of recomputing S.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "sm90_ptx.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
-
-using namespace sm90;
 
 constexpr int kBQ = 128;                   // query rows of a block
 constexpr int kConsumers = 256;            // two warpgroups of 64 rows
@@ -77,8 +73,6 @@ constexpr int kThreads = kConsumers + 128; // and a producer warpgroup
 constexpr int kConsumerRegs = 224;
 constexpr int kProducerRegs = 56;
 constexpr int kStages = 3;                 // K / V ring depth
-constexpr float kNeg = -1e30f;             // masked score (finite, as the TPU kernel's)
-constexpr int kTensorMapError = 10000;     // + CUresult of a failed tensor-map encode
 
 template <int HD>
 struct Cfg {
@@ -90,72 +84,6 @@ struct Cfg {
   // + 1024 to align the tiles to a swizzle atom, + the mbarriers
   static constexpr int kSmem = kBarOffset + 1024 + 8 * (1 + 3 * kStages);
 };
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// s[64 x BK] = Q K^T for one warpgroup: Q rows at q_addr (a tile of QROWS
-// rows a half), K rows at k_addr (BK rows a half), both 128-byte swizzled.
-template <int HD, int BK, int QROWS>
-__device__ __forceinline__ void qk_tile(float (&s)[BK / 2], uint32_t q_addr,
-                                        uint32_t k_addr) {
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    // k-step kk: half kk / 4, bytes 32 (kk % 4) into each 128-byte row
-    const uint32_t col = (kk % 4) * 32;
-    const uint64_t da = desc_sw128(q_addr + (kk / 4) * QROWS * 128 + col, 16, 1024);
-    const uint64_t db = desc_sw128(k_addr + (kk / 4) * BK * 128 + col, 16, 1024);
-    wgmma_ss<BK>(s, da, db, kk > 0);
-  }
-  wgmma_commit();
-  wgmma_wait<0>();
-#pragma unroll
-  for (int i = 0; i < BK / 2; ++i) fence_reg(s[i]);
-}
-
-// The f32 p of an S fragment as two bf16 A fragments, p ~= p_hi + p_lo:
-// k-step kk's register r holds p[8 kk + 2 r] (low half) and p[8 kk + 2 r + 1].
-template <int BK>
-__device__ __forceinline__ void split_p(const float (&p)[BK / 2],
-                                        uint32_t (&ph)[BK / 16][4],
-                                        uint32_t (&pl)[BK / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float x0 = p[8 * kk + 2 * r], x1 = p[8 * kk + 2 * r + 1];
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
-      const float2 back = __bfloat1622float2(hi);
-      ph[kk][r] = bf16x2_bits(hi);
-      pl[kk][r] = bf16x2_bits(__floats2bfloat162_rn(x0 - back.x, x1 - back.y));
-    }
-}
-
-// o[64 x HD] += (p_hi + p_lo) V for one warpgroup, V rows at v_addr (BK
-// rows a half).  V is an MN-major operand: its leading byte offset steps
-// from one 64-column half to the next, its stride byte offset from one
-// 8-key group (1024 bytes) to the next.
-template <int HD, int BK>
-__device__ __forceinline__ void pv_tile(float (&o)[HD / 2],
-                                        const uint32_t (&ph)[BK / 16][4],
-                                        const uint32_t (&pl)[BK / 16][4],
-                                        uint32_t v_addr) {
-#pragma unroll
-  for (int i = 0; i < HD / 2; ++i) fence_reg(o[i]);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    const uint64_t db = desc_sw128(v_addr + kk * 16 * 128, BK * 128, 1024);
-    wgmma_rs<HD>(o, ph[kk], db, 1);
-    wgmma_rs<HD>(o, pl[kk], db, 1);
-  }
-  wgmma_commit();
-  wgmma_wait<0>();
-#pragma unroll
-  for (int i = 0; i < HD / 2; ++i) fence_reg(o[i]);
-}
 
 // p = 2^(s scale_log2 - m) of a tile, in place, added to this lane's row
 // sums; on an edge tile (kEdge) masked scores give p = 0.  A template on
@@ -180,7 +108,8 @@ template <int HD>
 __device__ __forceinline__ void consume(uint8_t* q_s, uint8_t* k_s, uint8_t* v_s,
                                         uint64_t* q_full, uint64_t* k_full,
                                         uint64_t* v_full, uint64_t* empty,
-                                        __nv_bfloat16* __restrict__ o, int S, int H,
+                                        __nv_bfloat16* __restrict__ o,
+                                        float* __restrict__ lse, int S, int H,
                                         int b, int h, int q0, int kt_begin, int n_tiles,
                                         float scale_log2, int causal, int window) {
   using C = Cfg<HD>;
@@ -267,6 +196,8 @@ __device__ __forceinline__ void consume(uint8_t* q_s, uint8_t* k_s, uint8_t* v_s
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int s = row0 + 8 * r;
     if (s >= S) continue;
+    if (lse != nullptr && t == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * S + s] = m[r] + log2f(l[r]);
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     __nv_bfloat16* out = o + ((static_cast<int64_t>(b) * S + s) * H + h) * HD + 2 * t;
 #pragma unroll
@@ -281,8 +212,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
                const __grid_constant__ CUtensorMap kmap,
                const __grid_constant__ CUtensorMap vmap,
-               __nv_bfloat16* __restrict__ o, int S, int H, int B, int groups,
-               float scale_log2, int causal, int window) {
+               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S, int H,
+               int B, int groups, float scale_log2, int causal, int window) {
   using C = Cfg<HD>;
   constexpr int BK = C::kBK;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -339,7 +270,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
       }
     }
   } else {
-    consume<HD>(q_s, k_s, v_s, q_full, k_full, v_full, empty, o, S, H, b, h, q0,
+    consume<HD>(q_s, k_s, v_s, q_full, k_full, v_full, empty, o, lse, S, H, b, h, q0,
                 kt_begin, n_tiles, scale_log2, causal, window);
   }
 }
@@ -402,55 +333,9 @@ flash_probe_sm90(const __grid_constant__ CUtensorMap qmap,
       o_out[(row0 + 8 * (e >> 1)) * HD + 8 * j + col0 + (e & 1)] = acc[4 * j + e];
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API call; the library links only the
-// runtime, so it is looked up once through the runtime's entry-point table.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-d map (hd, heads, rows, batch) of a bf16 [B, S, heads, hd] tensor
-// with the given element strides (hd's is 1), read in boxes of 64 columns
-// x box_rows rows of one head, 128-byte swizzled, zero past every edge.
-int make_map(CUtensorMap* map, const void* base, int hd, int heads, int rows, int batch,
-             int64_t s_head, int64_t s_row, int64_t s_batch, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return kTensorMapError + CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)rows,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)s_head * 2, (cuuint64_t)s_row * 2,
-                                 (cuuint64_t)s_batch * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                            const_cast<void*>(base), dims, strides, box, unit,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(r);
-}
-
-struct Strides {
-  int64_t b, s, h;
-};
-
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, Strides qs, Strides ks,
-           Strides vs, int B, int S, int H, int KV, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, Strides qs,
+           Strides ks, Strides vs, int B, int S, int H, int KV, int causal, int window,
            cudaStream_t stream) {
   using C = Cfg<HD>;
   CUtensorMap qm, km, vm;
@@ -467,8 +352,8 @@ int launch(const void* q, const void* k, const void* v, void* o, Strides qs, Str
   if (err != cudaSuccess) return (int)err;
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)HD);
   flash_fwd_sm90<HD><<<(unsigned)blocks, kThreads, C::kSmem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), S, H, B, H / KV, scale_log2, causal,
-      window);
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, S, H, B, H / KV, scale_log2,
+      causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -507,10 +392,14 @@ int resources(int* out) {
 
 // Strides are in elements, in the order (batch, sequence, head); head_dim's
 // is 1.  window <= 0 means no window.  o must be contiguous [B, S, H, hd].
+// lse, when not null, is a contiguous float32 [B, H, S] that gets each
+// row's log-sum-exp of its scaled scores in log2 units, m + log2(l) from
+// the f32 running max and row sum (what the backward reads); null writes
+// nothing and costs nothing.
 // Returns cudaGetLastError() of the launch, or kTensorMapError + the
 // CUresult of a tensor map the driver refused.
 extern "C" int flash_attn_sm90_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int B, int S, int H, int KV, int hd, int64_t qsb,
+                                   float* lse, int B, int S, int H, int KV, int hd, int64_t qsb,
                                    int64_t qss, int64_t qsh, int64_t ksb, int64_t kss,
                                    int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh,
                                    int causal, int window, void* stream) {
@@ -518,7 +407,7 @@ extern "C" int flash_attn_sm90_fwd(const void* q, const void* k, const void* v, 
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   const cudaStream_t st = (cudaStream_t)stream;
 #define FLASH_SM90_LAUNCH(HD) \
-  launch<HD>(q, k, v, o, qs, ks, vs, B, S, H, KV, causal, window, st)
+  launch<HD>(q, k, v, o, lse, qs, ks, vs, B, S, H, KV, causal, window, st)
   switch (hd) {
     case 16: return FLASH_SM90_LAUNCH(16);
     case 32: return FLASH_SM90_LAUNCH(32);

@@ -1,7 +1,8 @@
 // Inline-PTX wrappers for Hopper (sm_90a): mbarriers, TMA tensor loads and
 // warpgroup matrix multiplies (wgmma) on bf16 tiles with f32 accumulators.
-// Included by flash_attn_sm90.cu; _build hashes it with every source that
-// includes it, so an edit here rebuilds them.
+// Included (through flash_sm90.cuh) by flash_attn_sm90.cu and
+// flash_attn_bwd_sm90.cu; _build hashes it with every source that includes
+// it, so an edit here rebuilds them.
 //
 // Shared-memory tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
 // writes: rows of 64 bf16 (128 bytes), the eight 16-byte chunks of row r
@@ -99,6 +100,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, by the bulk-copy engine; completion is counted in bytes on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ------------------------------------------------------------------- wgmma
 
 // Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
@@ -144,6 +156,17 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db,
                                          int scale_d);
 
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float* d, uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da, uint64_t db,
                                              int scale_d) {

@@ -11,6 +11,8 @@ import math
 
 import torch
 
+LOG2_E = 1.0 / math.log(2.0)
+
 
 def _mask(S: int, causal: bool, window, device) -> torch.Tensor:
     pos = torch.arange(S, device=device)
@@ -23,10 +25,13 @@ def _mask(S: int, causal: bool, window, device) -> torch.Tensor:
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = True, window=None) -> torch.Tensor:
+                  causal: bool = True, window=None, return_lse: bool = False):
     """q [B,S,H,hd], k/v [B,S,H,hd] (already GQA-broadcast) → [B,S,H,hd].
 
-    The full S×S score matrix in f32; the output in q's dtype.
+    The full S×S score matrix in f32; the output in q's dtype.  With
+    ``return_lse`` also each row's log-sum-exp of its masked scaled scores
+    in log2 units, f32 [B,H,S]: what the bf16 forward kernel writes for
+    its backward.
     """
     B, S, H, hd = q.shape
     scale = 1.0 / math.sqrt(hd)
@@ -36,8 +41,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(s - s.amax(-1, keepdim=True))
     p = p.masked_fill(~mask, 0.0)
     p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
-    return out.to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, -1) * LOG2_E
+    return out
 
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

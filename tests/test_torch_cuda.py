@@ -23,7 +23,13 @@ tensor-core kernel against the plain version in f32 on the same values, to
 half a bf16 ulp of each value plus 2^-12 of its row's RMS
 (``ref.err_ratio``: the kernel keeps p to ~16 bits as two bf16 terms and
 its sums in f32, and rounds only its output), and its two wgmma products
-on one tile against the same products in f32 (rtol/atol 1e-5).  Live
+on one tile against the same products in f32 (rtol/atol 1e-5); its lse
+output against ``torch.logsumexp`` (rtol/atol 1e-5).  The backward
+kernels against ``attention_bwd_ref``: in f32 to rtol 1e-4 / atol 1e-5,
+in bf16 (the tensor-core kernels, from the forward's lse) to
+``ref.grad_err_ratio``'s bound, two calls to the same bits, and the bf16
+kernel's transposed products on one tile against ``torch.matmul`` in f32
+(rtol/atol 1e-5).  Live
 updates on the card launch the L2 kernels and recover from their journal
 to the same bits; the resilient server at rung 0 gives ``AnnServer``'s
 results exactly, with no retry and no fallback, and a failing kernel tier
@@ -887,6 +893,78 @@ def test_flash_sm90_resources(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", flash_ops.HEAD_DIMS)
+def test_flash_sm90_lse_on_card(cuda, hd):
+    """The bf16 kernel's lse (``return_lse``) is each row's log-sum-exp of
+    its masked scaled scores in log2 units, against ``torch.logsumexp`` of
+    the f32 scores (rtol/atol 1e-5: f32 sums in another order and ex2's
+    approximation), and asking for it leaves the output the same bits."""
+    for B, S, H, KV, causal, window in FLASH_CASES + FLASH_BF16_CASES:
+        q, k, v = _flash_inputs(B, S, H, KV, hd, torch.bfloat16, cuda,
+                                seed=S + hd)
+        before = flash_ops.LAUNCHES["flash_attention"]
+        out, lse = flash_ops.flash_attention(q, k, v, causal=causal,
+                                             window=window, return_lse=True)
+        assert flash_ops.LAUNCHES["flash_attention"] == before + 1
+        assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+        plain = flash_ops.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+        assert torch.equal(out, plain)
+        G = H // KV
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                         k.float().repeat_interleave(G, 2)) / hd ** 0.5
+        pos = torch.arange(S, device=cuda)
+        ok = torch.ones((S, S), dtype=torch.bool, device=cuda)
+        if causal:
+            ok &= pos[:, None] >= pos[None, :]
+        if window is not None:
+            ok &= pos[:, None] - pos[None, :] < window
+        want = torch.logsumexp(s.masked_fill(~ok, float("-inf")), -1)
+        torch.testing.assert_close(lse, want * flash_ref.LOG2_E, rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", flash_ops.HEAD_DIMS)
+def test_flash_bwd_sm90_products_match_matmul(cuda, hd):
+    """The bf16 backward's dK / dV products on one tile each, as its dkdv
+    kernel lays them out (a 128-key K block, each warpgroup 64 keys of it):
+    sᵀ = k qᵀ (wgmma, K as A and Q as B, both K-major) and (pᵀ_hi + pᵀ_lo)
+    dO (pᵀ from registers, dO an MN-major operand) equal the same products
+    in f32 (exact bf16 products, f32 sums in another order: rtol/atol 1e-5
+    of the scale)."""
+    bq = flash_ops.sm90_bwd_resources(hd)["block_queries"]
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    k = torch.randn((128, hd), generator=g, device=cuda).bfloat16()
+    q = torch.randn((bq, hd), generator=g, device=cuda).bfloat16()
+    do = torch.randn((bq, hd), generator=g, device=cuda).bfloat16()
+    p = torch.rand((128, bq), generator=g, device=cuda)
+    p_hi = p.bfloat16().float()
+    p_lo = (p - p_hi).bfloat16().float()
+    st, dv = flash_ops.sm90_bwd_probe(k, q, do, p)
+    torch.testing.assert_close(st, k.float() @ q.float().T, rtol=1e-5,
+                               atol=1e-5 * hd ** 0.5)
+    torch.testing.assert_close(dv, (p_hi + p_lo) @ do.float(), rtol=1e-5,
+                               atol=1e-5 * bq ** 0.5)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_sm90_resources(cuda):
+    """The bf16 backward's product kernels: within the register and
+    shared-memory limits of one block an SM, and no spills at hd = 64
+    (smollm's, the train path's)."""
+    for hd in flash_ops.HEAD_DIMS:
+        res = flash_ops.sm90_bwd_resources(hd)
+        print(f"hd={hd}: {res}")
+        for kern in ("dkdv", "dq"):
+            assert 0 < res[kern]["registers"] <= 255
+            assert (res[kern]["dynamic_smem_bytes"]
+                    + res[kern]["static_smem_bytes"]) <= 232448
+    res = flash_ops.sm90_bwd_resources(64)
+    assert res["dkdv"]["local_bytes"] == 0 and res["dq"]["local_bytes"] == 0
+
+
+@pytest.mark.cuda
 def test_flash_attention_reads_strided_inputs(cuda):
     """q, k and v as column slices of one fused projection (no copy), and
     a transposed view, give what their contiguous copies give."""
@@ -1064,20 +1142,23 @@ def _bwd_inputs(B, S, H, KV, hd, dtype, device, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("hd", flash_ops.HEAD_DIMS)
 def test_flash_attention_bwd_kernel_on_card(cuda, hd, dtype):
     """dQ, dK and dV of the kernel against ``attention_bwd_ref`` on the same
     values in f32: in f32 to rtol 1e-4 / atol 1e-5 (the same f32 math in
-    another order, on O(1) inputs), in bf16 to ``grad_err_ratio``'s bound
-    (each element rounded once from an f32 sum).  At S = 1 dQ and dK are
-    zero in exact arithmetic (one key: P = 1, dP = D) and f32 noise in
-    both versions: they are held to 1e-5."""
+    another order, on O(1) inputs), in bf16 (the tensor-core kernel, from
+    the forward's lse) to ``grad_err_ratio``'s bound (each element rounded
+    once from an f32 sum).  At S = 1 dQ and dK are zero in exact arithmetic
+    (one key: P = 1, dP = D) and f32 noise in both versions: they are held
+    to 1e-5."""
     for B, S, H, KV, causal, window in FLASH_BWD_CASES:
         q, k, v, do = _bwd_inputs(B, S, H, KV, hd, dtype, cuda, seed=S + hd)
-        o = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+        o, lse = flash_ops.flash_attention(q, k, v, causal=causal,
+                                           window=window, return_lse=True)
+        assert (lse is None) == (dtype == torch.float32)
         before = flash_ops.LAUNCHES["flash_attention_bwd"]
         got = flash_ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                            window=window)
+                                            window=window, lse=lse)
         torch.cuda.synchronize()
         assert flash_ops.LAUNCHES["flash_attention_bwd"] == before + 1
         want = flash_ref.attention_bwd_ref(
@@ -1102,9 +1183,9 @@ def test_flash_attention_bwd_is_deterministic(cuda, dtype):
     """Two backward launches on the same inputs give the same bits (no
     atomics)."""
     q, k, v, do = _bwd_inputs(2, 1000, 6, 2, 64, dtype, cuda, seed=3)
-    o = flash_ops.flash_attention(q, k, v)
-    first = flash_ops.flash_attention_bwd(q, k, v, o, do)
-    second = flash_ops.flash_attention_bwd(q, k, v, o, do)
+    o, lse = flash_ops.flash_attention(q, k, v, return_lse=True)
+    first = flash_ops.flash_attention_bwd(q, k, v, o, do, lse=lse)
+    second = flash_ops.flash_attention_bwd(q, k, v, o, do, lse=lse)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
@@ -1134,6 +1215,29 @@ def test_flash_attention_fn_gradient_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_flash_attention_fn_bf16_gradient_on_card(cuda):
+    """In bf16, torch.autograd.grad through ``common.flash_attention``
+    launches the forward once and the backward once, and gives what the
+    backward kernel gives on the forward's own output and lse, to the bit;
+    its inputs need no copy for TMA."""
+    q, k, v, do = _bwd_inputs(2, 300, 6, 2, 64, torch.bfloat16, cuda, seed=6)
+    before = dict(flash_ops.LAUNCHES)
+    copies = flash_ops.COPIES["flash_attention_bwd"]
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    got = torch.autograd.grad(
+        common.flash_attention(*leaves, window=100), leaves, do)
+    assert flash_ops.LAUNCHES["flash_attention"] == \
+        before["flash_attention"] + 1
+    assert flash_ops.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    assert flash_ops.COPIES["flash_attention_bwd"] == copies
+    o, lse = flash_ops.flash_attention(q, k, v, window=100, return_lse=True)
+    want = flash_ops.flash_attention_bwd(q, k, v, o, do, window=100, lse=lse)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.cuda
 def test_flash_attention_bwd_refuses_what_the_kernel_does_not_take(
         cuda, monkeypatch):
     """A head_dim with no kernel instance raises rather than running the
@@ -1141,6 +1245,9 @@ def test_flash_attention_bwd_refuses_what_the_kernel_does_not_take(
     q, k, v, do = _bwd_inputs(1, 16, 2, 1, 48, torch.float32, cuda)
     before = flash_ops.LAUNCHES["flash_attention_bwd"]
     with pytest.raises(ValueError, match="head_dim"):
+        flash_ops.flash_attention_bwd(q, k, v, do, do)
+    q, k, v, do = _bwd_inputs(1, 16, 2, 1, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="lse"):
         flash_ops.flash_attention_bwd(q, k, v, do, do)
 
     class Refused:

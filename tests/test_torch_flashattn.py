@@ -21,8 +21,13 @@ the port's blockwise attention are held against ``jax.grad`` of the
 reference's blockwise ``flash_attention`` (whose scan the JAX package
 trains through) to rtol/atol 1e-4 in f32 (the same gradient by explicit
 formulas against autodiff of an online softmax, summed in other orders);
-``ref.grad_err_ratio``'s reach is checked on the backward kernel's
-arithmetic (f32 sums, each gradient rounded to bf16 once).
+``ref.grad_err_ratio``'s reach is checked on the backward kernels'
+arithmetic: the float32 kernel's (f32 sums, each gradient rounded to bf16
+once) and the bf16 tensor-core kernel's (bf16 products with f32 sums, P from
+the forward's lse, P and dS as two bf16 terms, one rounding), the latter
+against ``jax.vjp`` of the reference's blockwise attention.  The plain
+forward's lse (log2 units) is held against ``torch.logsumexp`` in f64 to
+rtol/atol 1e-6.
 """
 
 import math
@@ -116,13 +121,16 @@ def test_bf16_bound_holds_rounding_and_sees_one_missing_key(S, window):
         q, k, v, window=window), want) > 1.0
 
 
-def _tensor_core_arithmetic(q, k, v, window, split=True, block=128):
+def _tensor_core_arithmetic(q, k, v, window, split=True, block=128,
+                            return_lse=False):
     """The bf16 tensor-core kernel's arithmetic on the CPU: scores from bf16
     q·k products summed in f32, an online softmax over 128-key tiles in f32
     (exp2 with the scale folded in), p carried into the PV product as
     bf16(p) + bf16(p − bf16(p)) (or as bf16(p) alone when ``split`` is
     False), PV summed in f32, the row sums from the f32 p, and the output
-    rounded to bf16 once."""
+    rounded to bf16 once; with ``return_lse`` also each row's m + log2(l)
+    [B, H, S] from the final running max and sum, as the kernel writes it
+    for the backward."""
     B, S, H, hd = q.shape
     G = H // k.shape[2]
     qf = q.float().transpose(1, 2)                           # [B, H, S, hd]
@@ -148,7 +156,10 @@ def _tensor_core_arithmetic(q, k, v, window, split=True, block=128):
         acc = acc * corr + (p_hi + p_lo) @ vf[:, :, k0:k0 + block]
         l = l * corr + p.sum(-1, keepdim=True)
         m = m_new
-    return (acc / l).transpose(1, 2).bfloat16()
+    out = (acc / l).transpose(1, 2).bfloat16()
+    if return_lse:
+        return out, (m + torch.log2(l))[..., 0]
+    return out
 
 
 @pytest.mark.parametrize("S,window", [(1000, None), (1000, 100), (321, 7)])
@@ -274,3 +285,109 @@ def test_flash_attention_bwd_checks_its_inputs():
     with pytest.raises(ValueError, match="multiple"):
         flash_ops.flash_attention_bwd(q, k[:, :, :1].expand(1, 8, 3, 16),
                                       k[:, :, :1].expand(1, 8, 3, 16), q, q)
+
+
+def _two_terms(x, split):
+    """x as the bf16 A fragment a kernel feeds a wgmma: bf16(x) + bf16(x −
+    bf16(x)) in f32, or bf16(x) alone when ``split`` is False."""
+    hi = x.bfloat16().float()
+    return hi + (x - hi).bfloat16().float() if split else hi
+
+
+def _tensor_core_bwd_arithmetic(q, k, v, o, do, lse, window, split_p=True,
+                                split_ds=True):
+    """The bf16 backward kernel's arithmetic on the CPU: S = q kᵀ and dP =
+    dO vᵀ from bf16 operands summed in f32; P = 2^(S log2(e) / √hd − lse)
+    from the forward's lse (log2 units); D = rowsum(dO ∘ o) in f32 from the
+    forward's bf16 output; dS = P ∘ (dP − D); P and dS carried into the dV,
+    dK and dQ products as two bf16 terms each (one when ``split_p`` /
+    ``split_ds`` is False), those products summed in f32, dK and dV over
+    each KV head's group, and each gradient rounded to bf16 once."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qf, of, dof = (x.float().transpose(1, 2) for x in (q, o, do))
+    kf = k.float().repeat_interleave(G, 2).transpose(1, 2)    # [B, H, S, hd]
+    vf = v.float().repeat_interleave(G, 2).transpose(1, 2)
+    scale = 1.0 / math.sqrt(hd)
+    pos = torch.arange(S)
+    ok = pos[None, :] <= pos[:, None]
+    if window is not None:
+        ok &= pos[:, None] - pos[None, :] < window
+    s = qf @ kf.transpose(-1, -2)
+    p = torch.where(ok, torch.exp2(s * (scale * math.log2(math.e))
+                                   - lse[..., None]), torch.tensor(0.0))
+    dp = dof @ vf.transpose(-1, -2)
+    ds = p * (dp - (dof * of).sum(-1, keepdim=True))
+    pe, dse = _two_terms(p, split_p), _two_terms(ds, split_ds)
+    dq = (dse @ kf * scale).transpose(1, 2)
+    dk = (dse.transpose(-1, -2) @ qf * scale).transpose(1, 2)
+    dv = (pe.transpose(-1, -2) @ dof).transpose(1, 2)
+    dk, dv = (x.reshape(B, S, KV, G, hd).sum(3) for x in (dk, dv))
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S,window", [(1000, None), (1000, 100), (321, 7)])
+def test_grad_bound_holds_the_tensor_core_bwd_arithmetic(S, window, hd):
+    """The bf16 backward kernel's arithmetic (bf16 products with f32 sums,
+    P from the tensor-core forward's lse, P and dS as two bf16 terms, one
+    rounding) stays within ``grad_err_ratio``'s bound in dq, dk and dv
+    against ``jax.vjp`` of the reference's blockwise attention on the same
+    values, with D taken from the reference's own f32 output; P in one bf16
+    term breaks it in dv, and dS in one term breaks it in dq and dk.  On
+    the forward's bf16 output (the kernel's input on the train path) it
+    stays within the bound against the plain backward in f32 on the same
+    values, as the card tests hold the kernel.  (Against ``jax.vjp`` that
+    rounded output moves D, and dq and dk with it, past the bound in the
+    plain backward as much as in this arithmetic: a property of the bf16
+    forward, not of the backward.)"""
+    rng = np.random.default_rng(S + hd)
+    q, k, v, do = (rng.normal(size=shape).astype(np.float32) for shape in (
+        (1, S, 4, hd), (1, S, 2, hd), (1, S, 2, hd), (1, S, 4, hd)))
+    tq, tk, tv, tdo = (torch.from_numpy(x).bfloat16() for x in (q, k, v, do))
+    out, vjp = jax.vjp(lambda a, b, c: ref_blockwise(a, b, c, window=window),
+                       *(jnp.asarray(x.float().numpy()) for x in (tq, tk, tv)))
+    want = [torch.from_numpy(np.array(g))
+            for g in vjp(jnp.asarray(tdo.float().numpy()))]
+    o, lse = _tensor_core_arithmetic(tq, tk, tv, window, return_lse=True)
+
+    def ratios(o, want, **split):
+        got = _tensor_core_bwd_arithmetic(tq, tk, tv, o, tdo, lse, window,
+                                          **split)
+        return [flash_ref.grad_err_ratio(g, w) for g, w in zip(got, want)]
+
+    o32 = torch.from_numpy(np.array(out))
+    assert max(ratios(o32, want)) <= 1.0
+    assert ratios(o32, want, split_p=False)[2] > 1.0
+    dq, dk, _ = ratios(o32, want, split_ds=False)
+    assert dq > 1.0 and dk > 1.0
+    plain = flash_ref.attention_bwd_ref(
+        *(x.float() for x in (tq, tk, tv, o, tdo)), window=window)
+    assert max(ratios(o, plain)) <= 1.0
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window,bq,bk", BWD_CASES)
+def test_plain_forward_lse_is_the_row_logsumexp(B, S, H, KV, hd, causal,
+                                                window, bq, bk):
+    """``flash_attention(..., return_lse=True)`` on the CPU gives each row's
+    log-sum-exp of its masked scaled scores in log2 units, as
+    ``torch.logsumexp`` gives it in f64, and the same output as without
+    it."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(B, S, H, KV, hd, seed=S))
+    out, lse = flash_ops.flash_attention(q, k, v, causal=causal,
+                                         window=window, return_lse=True)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    torch.testing.assert_close(out, flash_ops.flash_attention(
+        q, k, v, causal=causal, window=window), rtol=0, atol=0)
+    G = H // KV
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(),
+                     k.double().repeat_interleave(G, 2)) / math.sqrt(hd)
+    pos = torch.arange(S)
+    ok = torch.ones((S, S), dtype=torch.bool)
+    if causal:
+        ok &= pos[:, None] >= pos[None, :]
+    if window is not None:
+        ok &= pos[:, None] - pos[None, :] < window
+    want = torch.logsumexp(s.masked_fill(~ok, float("-inf")), -1) / math.log(2)
+    torch.testing.assert_close(lse.double(), want, rtol=1e-6, atol=1e-6)
