@@ -7,11 +7,12 @@
 The serve phase's n is cut from the SIFT1M target of 1,000,000 to
 500,000: at 1M the build alone took 740.6 s on an H100 80GB HBM3 at
 700 W and the whole run 808 s, over half of the 1200 s a smoke run may
-take.  The kernel phase always uses the 1M base.  The exact build (n =
-4,000), the five baseline builders (n = 20,000 each) and the MIPS build
-(n = 50,000) are smaller still, all at d = 128: Algorithm 2 is O(n²)
-(the paper calls it intractable past ~10⁵) and five more builders and a
-second δ-EMQG build at 500k would not fit the limit.
+take.  The kernel phase always uses a 1M base (at d = 65 the same 512
+MB: 1,969,230 rows).  The exact build (n = 4,000), the five baseline
+builders (n = 20,000 each), the MIPS build (n = 50,000) and MIND's index
+(20,000 item rows, d = 64) are smaller still: Algorithm 2 is O(n²) (the
+paper calls it intractable past ~10⁵) and five more builders and more
+δ-EMQG builds at 500k would not fit the limit.
 
 The host sets most of the run's time.  On an H100 80GB HBM3 at 700 W,
 in one call on one host, the script before the live and resilient
@@ -37,12 +38,16 @@ non-zero and prints no result line):
                path below gives them (base 1M × 128; ids [128, 1] in the
                drain, [1024, 24] in the build's searches and, over a base
                1M × 129, in the MIPS build's, [128, 24] in the exact
-               searches; codes [128, 24, 4] in the probe phase; the
+               searches; over a base 1,969,230 × 65 (the same bytes), ids
+               [1024, 24] in the recsys phase's MIND build and [64, 1] in
+               its retrieval; codes [128, 24, 4] in the probe phase; the
                estimate of ids [128, 24] over a 1M-row code table, W = 4 in
-               the drain and W = 5 in MIPS; rows [1024, 25, 128] in the
+               the drain and W = 5 in MIPS, and of ids [64, 24], W = 3 at
+               d = 65 in MIND's retrieval; rows [1024, 25, 128] in the
                build's neighbor selection, [1024, 24, 128] in the live
                phase's inserts, [1024, 25, 129] in the MIPS
-               build's and [524, 128, 128] in the exact build's; and W =
+               build's, [1024, 25, 65] in MIND's and [524, 128, 128] in
+               the exact build's; and W =
                4's [128, 96] and the JAX package's
                benchmark shape [64, 64, 128], on no path), then timed with
                CUDA events over input sets that hold three times the card's
@@ -51,7 +56,8 @@ non-zero and prints no result line):
                row a warp) and ``batched_l2`` each pick one of three kernels
                by d and alignment, and the kernel picked at a path's shape
                must launch on that path; where that is a ragged-d register
-               kernel (MIPS's d + 1 = 129) or one of ``gather_l2``'s, the
+               kernel (MIPS's d + 1 = 129, MIND's 65) or one of
+               ``gather_l2``'s, the
                one-row-a-warp block kernel is forced at the same shape, held
                against the plain version, timed beside it, and must give
                the same floats to the bit; ``bitdot`` and
@@ -75,9 +81,10 @@ non-zero and prints no result line):
                ``filtered_search`` with a seeded 10% mask;
 6. profile  — ``torch.profiler`` over one served batch of 128 queries
                with max_hops = 128 and over one 1024-node candidate
-               search of the build, on the same index; one JSON line each (device busy share, kernel
-               launches and launches per hop, ms per hop), and the operator tables written to
-               ``build/profile/`` under the checkout;
+               search of the build, on the same index, device activity
+               alone; one JSON line each (device busy share, kernel
+               launches and launches per hop, ms per hop), and the operator
+               tables written to ``build/profile/`` under the checkout;
 7. live     — on the same index, ``as_live`` and two journals under
                ``build/live/`` with the op stream ``LIVE_OPS``: insert 1,024
                (twice), delete 10,000 live ids (2%), consolidate, insert
@@ -150,7 +157,31 @@ non-zero and prints no result line):
                and ``mips_search`` for 256 queries (``gather_l2_ragged`` in
                its exact tier): recall@10 against brute-force inner
                product, ids against the plain path;
-13. lm      — smollm-135m at full width in bf16, weights from a seeded
+13. recsys  — FM, DCN-v2, DIEN and MIND at their published widths in f32
+               (weights from a seeded generator, one arch's tables on the
+               card at a time: 3.60, 3.50, 0.30 and 2.15 GB): each served
+               at ``serve_p99`` (512) and ``serve_bulk`` (262,144) through
+               the serve cell's function (MIND: its user interests), ms,
+               samples/s, model FLOP/s, peak memory; ``retrieval_cand`` (one
+               user against 10⁶ candidates, top 100) timed, sorted with
+               ties in ascending id, its scores equal to the forward
+               recomputed for the returned ids; serve_p99 and a retrieval
+               over 20,000 candidates equal to the same port functions on
+               the CPU with the parameters copied there; all within
+               ``RECSYS_TOL``, which each arch's control (``recsys_control``)
+               must break; one profiled DIEN serve_p99 forward (a
+               ``[profile]`` line); MIND's retrieval through the δ-EMQG MIPS
+               index as ``benchmarks/retrieval.py`` runs it: ``build_mips``
+               over its first 20,000 item rows (d + 1 = 65, three code
+               words; path ``recsys_build``), 16 users' interests as 64
+               queries through ``mips_search`` (path ``recsys_retrieval``),
+               ids against the plain path, the served inner products
+               against the exact ones, the ragged-d kernels and
+               ``fused_estimate`` launched and never the block kernels;
+               recall@100 against exact ``mind_retrieval`` and the distance
+               budget printed; ``[recsys]`` lines, a ``[recsys-summary]``
+               line;
+14. lm      — smollm-135m at full width in bf16, weights from a seeded
                ``torch.Generator``: the ``flash_attention`` kernel (its bf16
                instance on the tensor cores, ``flash_attn_sm90.cu``) against
                the plain blockwise attention at the prefill's shape (q [1,
@@ -173,7 +204,7 @@ non-zero and prints no result line):
                ``decode_step``'s logits after the prompt against
                ``prefill``'s.  Controls with attention or the decode cache
                broken on purpose must break the logit bound;
-14. train   — smollm-135m trained at its published widths in bf16
+15. train   — smollm-135m trained at its published widths in bf16
                (``train_4k``'s sequence of 4,096; its batch of 256 cut to
                8 and its accumulation of 4 to 2): the backward kernels
                (``flash_attn_bwd_sm90.cu``, on the tensor cores from the
@@ -199,7 +230,7 @@ non-zero and prints no result line):
                flash forward's, backward's and GEMMs' shares); all under
                ``torch.use_deterministic_algorithms``; ``[train]`` and
                ``[train-summary]`` lines;
-15. moe     — moonshot-v1-16b-a3b at its published widths, its 48 layers
+16. moe     — moonshot-v1-16b-a3b at its published widths, its 48 layers
                cut to 16 (``MOE_LAYERS``, to win back the train phase's
                time), in bf16 (9.5 B parameters, 19 GB, from a seeded
                generator):
@@ -223,9 +254,11 @@ non-zero and prints no result line):
 Every kernel's launch count is set to 0 just before the path that runs it
 and read just after; a kernel that path never launched fails the run.  The
 ``kernels`` line reports each kernel at the shape of the path whose launch
-count it prints (``gather_l2_tiled`` at three paths, ``batched_l2`` at
-four, ``flash_attention`` at three: ``lm_prefill``, ``moe_prefill`` and
-``train``, and ``flash_attention_bwd`` at ``train``; ``kernel`` names the kernel behind the entry point, whose launches
+count it prints (``gather_l2_tiled`` at five paths, ``batched_l2`` at
+five, ``fused_estimate`` at two, ``flash_attention`` at three:
+``lm_prefill``, ``moe_prefill`` and ``train``, and
+``flash_attention_bwd`` at ``train``; ``kernel`` names the kernel behind
+the entry point, whose launches
 those are; a ragged-d row and ``gather_l2``'s also carry ``blocks_ms``, the
 block kernel's time at its shape).  Each phase prints its seconds.  The
 line before the last is the card; the one before it the ``kernels`` JSON;
@@ -353,6 +386,30 @@ SHARDED_S = 4
 SHARDED_R = 2
 SHARDED_STAGE = 128
 SPMD_RANKS = 2                 # the SPMD transport: 2 ranks on the one card
+# the recsys phase: the four recsys archs at their published widths in f32
+# (random weights from a seeded generator), one arch's tables on the card
+# at a time
+RECSYS_ARCHS = ("fm", "dcn-v2", "dien", "mind")
+RECSYS_K = 100                 # retrieval_cand's top k, the reference cell's
+RECSYS_CPU_CAND = 20_000       # candidates the card = CPU retrieval scores
+# MIND through the δ-EMQG index, as benchmarks/retrieval.py runs it: its
+# N_ITEMS default (the cut keeps a second δ-EMQG build within the limit),
+# its 16 users and its mips_search parameters
+RECSYS_INDEX_N = 20_000
+RECSYS_USERS = 16
+RECSYS_SEARCH = dict(k=100, alpha=1.2, l_max=256)
+# the bound on max |card − CPU| / max |CPU| of each arch's serve_p99
+# output, of the retrieval's scores on the card against the CPU's, and of
+# the 10⁶-candidate scores against the forward recomputed for the
+# returned ids (f32, TF32 off: sums in another order); set between the
+# sound readings and the controls of recsys_control, which must break it
+# (PERF.md §2).  On an H100 the sound readings were 4.8e-8 to 1.88e-6
+# (DCN-v2's 10⁶-row scores against 100 rows recomputed, the highest) and
+# the controls 5.79e-5 (MIND at two routing iterations, its recomputed
+# scores: random item rows of norm ≈ 0.08 make the third iteration's
+# update small) to 0.542; the bound sits near the geometric mean of
+# 1.88e-6 and 5.79e-5.
+RECSYS_TOL = 1e-5
 
 
 def fail(msg: str):
@@ -372,19 +429,24 @@ def card_line() -> str:
     return out[0]
 
 
-def device_ms(torch, fn, reps: int = 20) -> float:
+def device_ms(torch, fn, reps: int = 20, sets: int = 0) -> float:
     """Mean device time of one ``fn()`` call: ``fn`` is captured once into a
     CUDA graph and replayed ``reps`` times between two events, so the host's
-    per-call cost is out of the number."""
+    per-call cost is out of the number.  With ``sets``, ``fn(s)`` runs on
+    input set s, the graph holds every set and the time is a set's.  One
+    eager warm-up call on a side stream comes first (lazy initialisation
+    stays out of the capture), on set 0 alone: at the small shapes a pass
+    over the sets is thousands of launches, seconds of host time."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
+    calls = [lambda s=s: fn(s) for s in range(sets)] or [fn]
     with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
+        calls[0]()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for call in calls:
+            call()
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -394,7 +456,7 @@ def device_ms(torch, fn, reps: int = 20) -> float:
         graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps / max(sets, 1)
 
 
 def host_us(torch, fn, calls: int = 300) -> float:
@@ -463,12 +525,18 @@ GATHER_CASES = (
     ("gather_l2", 128, 24, 128, "exact_kernel"),
     ("gather_l2", 128, 96, 128, "W=4, no path here"),
     ("gather_l2_tiled", 1024, 24, 129, "mips_build"),   # MIPS's ragged d + 1
+    # MIND's d + 1 = 65 through the index: the build's searches and the
+    # retrieval's exact tier (64 interest queries, beam width 1)
+    ("gather_l2_tiled", 1024, 24, 65, "recsys_build"),
+    ("gather_l2_tiled", 64, 1, 65, "recsys_retrieval"),
 )
 # (B, K = W·M, path) of the bitdot launch: the expand branch's estimates
 BITDOT_CASES = ((128, 24, "probe"), (128, 96, "W=4, no path here"))
 # (B, K = W·M, code words, d, path) of the fused_estimate launch: the
-# expand branch's estimates at d = 128, and MIPS's augmented d + 1 = 129
-ESTIMATE_CASES = ((128, 24, 4, 128, "drain"), (128, 24, 5, 129, "mips"))
+# expand branch's estimates at d = 128, MIPS's augmented d + 1 = 129, and
+# MIND's d + 1 = 65 (three code words) for its 64 interest queries
+ESTIMATE_CASES = ((128, 24, 4, 128, "drain"), (128, 24, 5, 129, "mips"),
+                  (64, 24, 3, 65, "recsys_retrieval"))
 ESTIMATE_TABLES = 8            # distinct 1M-row code tables the timing cycles
 # the kernels line: (kernel, path) of each row, which reports the kernel at
 # that path's shape and its launches there
@@ -477,15 +545,20 @@ REPORTED = (("gather_l2_tiled", "drain"), ("gather_l2_tiled", "build"),
             ("bitdot", "probe"), ("fused_estimate", "drain"),
             ("batched_l2", "build"), ("batched_l2", "live"),
             ("batched_l2", "exact_build"),
-            ("batched_l2", "mips_build"), ("flash_attention", "lm_prefill"),
+            ("batched_l2", "mips_build"), ("gather_l2_tiled", "recsys_build"),
+            ("gather_l2_tiled", "recsys_retrieval"),
+            ("batched_l2", "recsys_build"),
+            ("fused_estimate", "recsys_retrieval"),
+            ("flash_attention", "lm_prefill"),
             ("flash_attention", "moe_prefill"), ("flash_attention", "train"),
             ("flash_attention_bwd", "train"))
 
 
 def batched_cases() -> tuple:
     """(B, M, d, path) of the batched_l2 launch: the selector's kept set in
-    the build (max_keep = M + 1 in the degree alignment) at d = 128 and at
-    MIPS's ragged d + 1 = 129, in the live phase's insert (max_keep = M),
+    the build (max_keep = M + 1 in the degree alignment) at d = 128, at
+    MIPS's ragged d + 1 = 129 and at MIND's d + 1 = 65 (the recsys phase's
+    index), in the live phase's insert (max_keep = M),
     the exact build's [block, max_degree] at
     EXACT_N (``build_exact``'s own defaults), and the JAX package's
     benchmark shape."""
@@ -495,6 +568,7 @@ def batched_cases() -> tuple:
     # insert's selection keeps M of its LIVE_INSERT new rows
     live = (LIVE_INSERT, BUILD_PARAMS["max_degree"], 128, "live")
     return ((*kept, 128, "build"), live, (*kept, 129, "mips_build"),
+            (*kept, 65, "recsys_build"),
             (_default_block(EXACT_N, 128), _default_max_degree(EXACT_N), 128,
              "exact_build"),
             (64, 64, 128, "reference benchmark, no path"))
@@ -585,6 +659,14 @@ def bitdot_bound(torch, codes, q_unit) -> tuple[float, str]:
     return bound(4 * (B * K * W + q_unit.numel() + B * K), set_bits)
 
 
+def base_rows(n: int, d: int) -> int:
+    """Rows of the gather rows' base at width d: n, or at d < 128 as many
+    as fill the same bytes as n × 128 (MIND's d + 1 = 65: 1,969,230), so
+    that the distinct rows the timed sets read pass twice the L2 as at
+    d = 128."""
+    return n if d >= 128 else n * 128 // d
+
+
 def kernel_phase(torch, card: str):
     from repro_torch.kernels.bitdot import ops as bitdot_ops
     from repro_torch.kernels.bitdot import ref as bitdot_ref
@@ -599,14 +681,16 @@ def kernel_phase(torch, card: str):
                 "gather_l2_tiled": "src/repro/kernels/l2dist/l2dist.py:145"}
     rows = {}
     for name, B, M, d, path in GATHER_CASES:
+        t_row = time.perf_counter()
         if d not in bases:
             bases.clear()                # one 0.5 GB base at a time
             torch.cuda.empty_cache()
-            bases[d] = torch.randn((n, d), generator=g, device=dev)
+            bases[d] = torch.randn((base_rows(n, d), d), generator=g,
+                                   device=dev)
         base = bases[d]
         sets = sets_for(torch, B * M * 4 * d)
-        ids = torch.randint(0, n, (sets, B, M), generator=g, device=dev,
-                            dtype=torch.int32)
+        ids = torch.randint(0, base.shape[0], (sets, B, M), generator=g,
+                            device=dev, dtype=torch.int32)
         ids.view(sets, -1)[:, ::7] = -1      # some invalid slots in every set
         queries = torch.randn((B, d), generator=g, device=dev)
         fn = getattr(l2ops, name)
@@ -620,19 +704,12 @@ def kernel_phase(torch, card: str):
         check(torch.allclose(out[ok], expect[ok], rtol=1e-5, atol=1e-4),
               f"{name} [{B},{M}] disagrees with its plain version: {err}")
 
-        def run_kernel(fn=fn, ids=ids, queries=queries):
-            for s in range(sets):
-                fn(base, ids[s], queries)
-
-        def run_plain(ids=ids, queries=queries):
-            for s in range(sets):
-                l2ref.gather_l2_ref(base, ids[s], queries)
-
         uniq = unique_per_set(torch, ids)            # rows a launch reads
         footprint = 4 * d * int(torch.unique(ids[ids >= 0]).numel())
         check_misses_l2(torch, f"{name} [{B},{M}]", footprint)
-        ms = device_ms(torch, run_kernel) / sets
-        plain_ms = device_ms(torch, run_plain) / sets
+        ms = device_ms(torch, lambda s: fn(base, ids[s], queries), sets=sets)
+        plain_ms = device_ms(torch, lambda s: l2ref.gather_l2_ref(
+            base, ids[s], queries), sets=sets)
         call = (host_us(torch, lambda: fn(base, ids[0], queries)),
                 host_us(torch, lambda: l2ref.gather_l2_ref(base, ids[0],
                                                            queries)))
@@ -652,16 +729,19 @@ def kernel_phase(torch, card: str):
             name=name, kernel=kernel, route="cuda",
             source="src/repro_torch/kernels/csrc/gather_l2.cu",
             replaces=replaces[name], path=path,
-            shape=f"ids[{B},{M}] base[{n},{d}]", max_abs_err=err, ms=ms,
+            shape=f"ids[{B},{M}] base[{base.shape[0]},{d}]", max_abs_err=err,
+            ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, timed_sets=sets, timed_mb=footprint / 1e6,
-            call_us=call[0], plain_call_us=call[1], **blocks)
+            call_us=call[0], plain_call_us=call[1],
+            row_s=time.perf_counter() - t_row, **blocks)
         del ids
     del base, bases
     torch.cuda.empty_cache()
 
     register_kernel_resources()
     for B, K, path in BITDOT_CASES:
+        t_row = time.perf_counter()
         codes, q_unit = bitdot_inputs(torch, g, B, K)
         sets, W = codes.shape[0], codes.shape[-1]
         out = bitdot_ops.bitdot(codes[0], q_unit)
@@ -675,10 +755,10 @@ def kernel_phase(torch, card: str):
               f"bitdot [{B},{K},{W}] is not the kernel-order sum to the bit")
         footprint = codes.numel() * 4
         check_misses_l2(torch, f"bitdot [{B},{K},{W}]", footprint)
-        ms = device_ms(torch, lambda: [bitdot_ops.bitdot(codes[s], q_unit)
-                                       for s in range(sets)]) / sets
-        plain_ms = device_ms(torch, lambda: [
-            bitdot_ref.bitdot_ref(codes[s], q_unit) for s in range(sets)]) / sets
+        ms = device_ms(torch, lambda s: bitdot_ops.bitdot(codes[s], q_unit),
+                       sets=sets)
+        plain_ms = device_ms(torch, lambda s: bitdot_ref.bitdot_ref(
+            codes[s], q_unit), sets=sets)
         call = (host_us(torch, lambda: bitdot_ops.bitdot(codes[0], q_unit)),
                 host_us(torch, lambda: bitdot_ref.bitdot_ref(codes[0], q_unit)))
         bound_ms, bound_by = bitdot_bound(torch, codes, q_unit)
@@ -689,7 +769,8 @@ def kernel_phase(torch, card: str):
             shape=f"codes[{B},{K},{W}] q[{B},{q_unit.shape[1]}]",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=None, timed_sets=sets,
-            timed_mb=footprint / 1e6, call_us=call[0], plain_call_us=call[1])
+            timed_mb=footprint / 1e6, call_us=call[0], plain_call_us=call[1],
+            row_s=time.perf_counter() - t_row)
         del codes
     torch.cuda.empty_cache()
     rows.update(estimate_rows(torch, g, n))
@@ -703,7 +784,8 @@ def kernel_phase(torch, card: str):
               f"{r['bound_ms'] / r['ms']:.3f} of the bound; library_ms "
               f"{'none' if lib is None else f'{lib:.5f}'}; host µs a call "
               f"{r['call_us']:.1f} (plain {r['plain_call_us']:.1f}); "
-              f"{r['timed_sets']} sets, {r['timed_mb']:.1f} MB"
+              f"{r['timed_sets']} sets, {r['timed_mb']:.1f} MB, the row "
+              f"{r['row_s']:.1f} s"
               + (f"; block kernel forced: ms {r['blocks_ms']:.5f} "
                  f"({r['blocks_ms'] / r['ms']:.3f}× this one's), "
                  f"err {r['blocks_err']:.3g}, bitwise equal to this one "
@@ -765,7 +847,7 @@ def blocks_beside(torch, out, expect, ok, launch, sets: int,
           f"{label} disagrees with its plain version: {err}")
     check(torch.equal(got.view(torch.int32), out.view(torch.int32)),
           f"{label} and the register kernel differ in a bit")
-    ms = device_ms(torch, lambda: [launch(s) for s in range(sets)]) / sets
+    ms = device_ms(torch, launch, sets=sets)
     return dict(blocks_ms=ms, blocks_err=err, blocks_bitwise=True)
 
 
@@ -829,6 +911,7 @@ def estimate_rows(torch, g, n: int) -> dict:
 
     rows = {}
     for B, K, W, d, path in ESTIMATE_CASES:
+        t_row = time.perf_counter()
         tables, ids, args = estimate_inputs(torch, g, n, B, K, W, d)
         sets = ids.shape[0]
         out = bitdot_ops.fused_estimate(*args(0))
@@ -848,11 +931,10 @@ def estimate_rows(torch, g, n: int) -> dict:
               f"estimate to the bit")
         footprint, bound_ms, bound_by = estimate_costs(torch, tables, ids, d)
         check_misses_l2(torch, f"fused_estimate [{B},{K}] W={W}", footprint)
-        ms = device_ms(torch, lambda: [bitdot_ops.fused_estimate(*args(s))
-                                       for s in range(sets)]) / sets
-        plain_ms = device_ms(torch, lambda: [
-            bitdot_ref.fused_estimate_ref(*args(s)) for s in range(sets)],
-            reps=5) / sets
+        ms = device_ms(torch, lambda s: bitdot_ops.fused_estimate(*args(s)),
+                       sets=sets)
+        plain_ms = device_ms(torch, lambda s: bitdot_ref.fused_estimate_ref(
+            *args(s)), reps=5, sets=sets)
         call = (host_us(torch, lambda: bitdot_ops.fused_estimate(*args(0))),
                 host_us(torch, lambda: bitdot_ref.fused_estimate_ref(*args(0))))
         rows[("fused_estimate", path)] = dict(
@@ -862,7 +944,8 @@ def estimate_rows(torch, g, n: int) -> dict:
             shape=f"ids[{B},{K}] codes[{n},{W}] d={d}", max_abs_err=err,
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, timed_sets=sets, timed_mb=footprint / 1e6,
-            call_us=call[0], plain_call_us=call[1])
+            call_us=call[0], plain_call_us=call[1],
+            row_s=time.perf_counter() - t_row)
         del tables, ids, args
     torch.cuda.empty_cache()
     return rows
@@ -870,7 +953,8 @@ def estimate_rows(torch, g, n: int) -> dict:
 
 def batched_inputs(torch, g, sets: int, B: int, M: int, d: int, path: str):
     """``sets`` input sets of batched_l2 at a path's shape: tiles f32[sets,
-    B, M, d] and query lines [B, d] (``queries[s]``).  On ``mips_build`` a
+    B, M, d] and query lines [B, d] (``queries[s]``).  On ``mips_build``
+    and ``recsys_build`` (both augmented MIPS builds) a
     query line is a column of the candidate tile [B, L, d], L = beam_width,
     read in place at stride L·d as ``core/geometry.py::select_neighbors``
     passes it; set s takes column s % L, so the lines start at each 4-byte
@@ -880,7 +964,7 @@ def batched_inputs(torch, g, sets: int, B: int, M: int, d: int, path: str):
     every load 16-byte aligned, so the same kernel runs."""
     dev = torch.device("cuda")
     tiles = torch.randn((sets, B, M, d), generator=g, device=dev)
-    if path != "mips_build":
+    if path not in ("mips_build", "recsys_build"):
         return tiles, torch.randn((sets, B, d), generator=g, device=dev)
     L = BUILD_PARAMS["beam_width"]
     cand = torch.randn((sets, B, L, d), generator=g, device=dev)
@@ -895,6 +979,7 @@ def batched_l2_rows(torch, g) -> dict:
 
     rows = {}
     for B, M, d, path in batched_cases():
+        t_row = time.perf_counter()
         sets = sets_for(torch, B * M * d * 4)
         tiles, queries = batched_inputs(torch, g, sets, B, M, d, path)
         out = l2ops.batched_l2(tiles[0], queries[0])
@@ -906,14 +991,12 @@ def batched_l2_rows(torch, g) -> dict:
               f"{err}")
         footprint = tiles.numel() * 4
         check_misses_l2(torch, f"batched_l2 [{B},{M},{d}]", footprint)
-        ms = device_ms(torch, lambda: [l2ops.batched_l2(tiles[s], queries[s])
-                                       for s in range(sets)]) / sets
-        plain_ms = device_ms(torch, lambda: [
-            l2ref.batched_l2_ref(tiles[s], queries[s])
-            for s in range(sets)]) / sets
-        library_ms = device_ms(torch, lambda: [
-            torch.cdist(tiles[s], queries[s][:, None, :])
-            for s in range(sets)]) / sets
+        ms = device_ms(torch, lambda s: l2ops.batched_l2(tiles[s], queries[s]),
+                       sets=sets)
+        plain_ms = device_ms(torch, lambda s: l2ref.batched_l2_ref(
+            tiles[s], queries[s]), sets=sets)
+        library_ms = device_ms(torch, lambda s: torch.cdist(
+            tiles[s], queries[s][:, None, :]), sets=sets)
         call = (host_us(torch, lambda: l2ops.batched_l2(tiles[0], queries[0])),
                 host_us(torch, lambda: l2ref.batched_l2_ref(tiles[0],
                                                             queries[0])))
@@ -934,7 +1017,8 @@ def batched_l2_rows(torch, g) -> dict:
             shape=f"rows[{B},{M},{d}]", max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms, timed_sets=sets, timed_mb=footprint / 1e6,
-            call_us=call[0], plain_call_us=call[1], **blocks)
+            call_us=call[0], plain_call_us=call[1],
+            row_s=time.perf_counter() - t_row, **blocks)
         del tiles, queries
     torch.cuda.empty_cache()
     return rows
@@ -1229,6 +1313,326 @@ def mips_phase(torch, card: str, counts: dict) -> None:
           f"ids equal to the plain path on {share:.4f} of 256 queries; "
           f"launches {json.dumps(counts['mips'])}; the build's "
           f"{json.dumps(counts['mips_build'])} ({card})")
+
+
+def synced_ms(torch, fn, reps: int = 5):
+    """(median host-clock ms of ``reps`` synchronised ``fn()`` calls after
+    one warm-up, the last call's output)."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def rel_err(got, want) -> float:
+    """max |got − want| / max |want| (on want's device)."""
+    got = got.to(want.device)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def recsys_control(torch, arch_id: str):
+    """The arch's serve function (cfg, params, batch) with one part broken
+    on purpose, the control that must break ``RECSYS_TOL``: FM without its
+    pairwise term, DCN-v2 without its last cross layer, DIEN with the
+    AUGRU's attention at 1, MIND with one routing iteration fewer."""
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys as rs
+
+    serve = steps._RECSYS_SERVE[arch_id]
+    if arch_id == "fm":
+        def fm_without_pair(cfg, p, b):
+            w = rs.field_lookup_flat(p["lin"], b["sparse_ids"], cfg.rows)
+            return (p["bias"] + w[..., 0].sum(1)).float()
+        return fm_without_pair
+    if arch_id == "dcn-v2":
+        return lambda cfg, p, b: serve(
+            dataclasses.replace(cfg, n_cross=cfg.n_cross - 1), p, b)
+    if arch_id == "mind":
+        return lambda cfg, p, b: serve(
+            dataclasses.replace(cfg, routing_iters=cfg.routing_iters - 1),
+            p, b)
+
+    def dien_attention_at_one(cfg, p, b):
+        real = rs._target_attention
+        rs._target_attention = lambda scores, mask: torch.ones_like(scores)
+        try:
+            return serve(cfg, p, b)
+        finally:
+            rs._target_attention = real
+    return dien_attention_at_one
+
+
+def recsys_recompute(torch, arch_id: str, fn, cfg, params, user, ids,
+                     scores) -> float:
+    """The relative error of retrieved scores against the arch's serve
+    function ``fn`` (or its control) recomputed for the returned ids: dcn
+    and dien score a batch of the user's features with each id as the
+    candidate, mind the interests ``fn`` gives against each id's item
+    row; fm's score is the logit less the user's own terms, one constant,
+    so the spread of logit − score is the error.  Each relative to the
+    recomputed values' largest magnitude."""
+    k = ids.shape[0]
+    if arch_id in ("fm", "dcn-v2"):
+        rows = torch.cat([ids[:, None].to(user["sparse_ids"].dtype),
+                          user["sparse_ids"][:, 1:].expand(k, -1)], 1)
+        batch = {"sparse_ids": rows}
+        if arch_id == "dcn-v2":
+            batch["dense"] = user["dense"].expand(k, -1)
+        logit = fn(cfg, params, batch)
+        if arch_id == "dcn-v2":
+            return rel_err(scores, logit)
+        c = logit - scores
+        return float((c - c.median()).abs().max() / logit.abs().max())
+    if arch_id == "dien":
+        batch = {key: user[key].expand(k, -1)
+                 for key in ("hist_items", "hist_cats", "hist_mask")}
+        batch.update(target_item=ids.to(torch.int32),
+                     target_cat=(ids % cfg.n_cats).to(torch.int32))
+        return rel_err(scores, fn(cfg, params, batch))
+    caps = fn(cfg, params, user)[0]                          # [K, d]
+    want = (caps @ params["item_emb"][ids.long()].T).amax(0)
+    return rel_err(scores, want)
+
+
+def recsys_serve(torch, arch, params, card: str) -> dict:
+    """serve_p99 and serve_bulk: the serve cell's function on a batch of
+    the synthetic logs; median host-clock ms of 5 synchronised calls,
+    samples/s, model FLOP/s (``_recsys_model_flops``), peak memory."""
+    from repro_torch.launch import steps
+
+    cfg = arch.model_cfg
+    fn = steps._RECSYS_SERVE[arch.id]
+    out = {}
+    for shape in ("serve_p99", "serve_bulk"):
+        B = arch.shapes[shape].dims["batch"]
+        batch = steps.recsys_batch(arch.id, cfg, B, step=0, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, y = synced_ms(torch, lambda: fn(cfg, params, batch))
+        want = ((B, cfg.n_interests, cfg.embed_dim) if arch.id == "mind"
+                else (B,))
+        check(tuple(y.shape) == want and bool(torch.isfinite(y).all()),
+              f"{arch.id} {shape}: output {tuple(y.shape)} is not {want} "
+              "finite values")
+        flops = steps._recsys_model_flops(arch, B)
+        out[shape] = dict(
+            batch=B, ms=ms, samples_per_s=B / ms * 1e3,
+            model_tflop_per_s=flops / ms / 1e9,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        print(f"[recsys] {arch.id} {shape} (B={B}): {ms:.3f} ms "
+              f"(median of 5, synchronised), "
+              f"{out[shape]['samples_per_s']:.0f} samples/s, "
+              f"{out[shape]['model_tflop_per_s']:.3f} model TFLOP/s, peak "
+              f"{out[shape]['peak_gb']:.2f} GB ({card})")
+        del batch, y
+    return out
+
+
+def recsys_checks(torch, arch, params, host, card: str) -> dict:
+    """Card = CPU: serve_p99's output on the card against the same port
+    function on the CPU with the parameters copied there; the retrieval
+    over the first ``RECSYS_CPU_CAND`` candidates on both (ids as sets on
+    ``MIN_AGREE``, sorted scores); then retrieval_cand (one user against
+    10⁶ candidates, top ``RECSYS_K``) timed, its list sorted with ties in
+    ascending id, and its scores against the forward recomputed for the
+    returned ids.  Each error within ``RECSYS_TOL``; the arch's control
+    must break it on serve_p99 and on the recomputed scores."""
+    from repro_torch.launch import steps
+
+    cfg, aid = arch.model_cfg, arch.id
+    serve, control = steps._RECSYS_SERVE[aid], recsys_control(torch, aid)
+    retrieve = steps._RECSYS_RETRIEVAL[aid]
+    B = arch.shapes["serve_p99"].dims["batch"]
+    batch = steps.recsys_batch(aid, cfg, B, step=0, device="cuda")
+    host_batch = {k: v.cpu() for k, v in batch.items()}
+    want = serve(cfg, host, host_batch)
+    r = dict(serve_err=rel_err(serve(cfg, params, batch), want),
+             serve_control=rel_err(control(cfg, params, batch), want))
+
+    user = steps.recsys_batch(aid, cfg, 1, step=1, device="cuda")
+    host_user = {k: v.cpu() for k, v in user.items()}
+    cand = torch.arange(RECSYS_CPU_CAND, dtype=torch.int32, device="cuda")
+    s_card, i_card = retrieve(cfg, params, user, cand, RECSYS_K)
+    s_cpu, i_cpu = retrieve(cfg, host, host_user, cand.cpu(), RECSYS_K)
+    r["cpu_ids_agree"] = len(set(i_card[0].tolist())
+                             & set(i_cpu[0].tolist())) / RECSYS_K
+    r["cpu_scores_err"] = rel_err(s_card, s_cpu)
+
+    C = arch.shapes["retrieval_cand"].dims["n_candidates"]
+    # the candidates are their positions, so fm's positions are its ids
+    cand = torch.arange(C, dtype=torch.int32, device="cuda")
+    ms, (scores, ids) = synced_ms(
+        torch, lambda: retrieve(cfg, params, user, cand, RECSYS_K), reps=3)
+    s, i = scores[0], ids[0]
+    check(tuple(scores.shape) == tuple(ids.shape) == (1, RECSYS_K)
+          and bool(torch.isfinite(s).all()),
+          f"{aid} retrieval: not {RECSYS_K} finite scores")
+    tie = s[1:] == s[:-1]
+    check(bool((s[1:] <= s[:-1]).all()) and bool((i[1:] > i[:-1])[tie].all()),
+          f"{aid} retrieval: the list is not sorted, ties in ascending id")
+    r.update(retrieval_ms=ms, retrieval_ties=int(tie.sum()),
+             recompute_err=recsys_recompute(torch, aid, serve, cfg, params,
+                                            user, i, s),
+             recompute_control=recsys_recompute(torch, aid, control, cfg,
+                                                params, user, i, s))
+    for key, bound_ok in (("serve_err", True), ("cpu_scores_err", True),
+                          ("recompute_err", True), ("serve_control", False),
+                          ("recompute_control", False)):
+        check((r[key] <= RECSYS_TOL) == bound_ok,
+              f"{aid} {key} {r[key]:.3g} against RECSYS_TOL {RECSYS_TOL} "
+              f"({'must hold' if bound_ok else 'the control must break it'})")
+    check(r["cpu_ids_agree"] >= MIN_AGREE,
+          f"{aid} retrieval ids on the card and the CPU agree on "
+          f"{r['cpu_ids_agree']:.3f}")
+    print(f"[recsys] {aid} card = CPU: serve_p99 {r['serve_err']:.3g} "
+          f"(control {r['serve_control']:.3g}), retrieval over "
+          f"{RECSYS_CPU_CAND:,} ids agree {r['cpu_ids_agree']:.3f} scores "
+          f"{r['cpu_scores_err']:.3g}; retrieval_cand {C:,} candidates top "
+          f"{RECSYS_K}: {ms:.3f} ms (median of 3, synchronised), "
+          f"{r['retrieval_ties']} ties, scores = forward recomputed "
+          f"{r['recompute_err']:.3g} (control {r['recompute_control']:.3g}); "
+          f"bound {RECSYS_TOL} ({card})")
+    return r
+
+
+def mind_index(torch, arch, params, card: str, counts: dict) -> dict:
+    """MIND's retrieval through the δ-EMQG MIPS index, as the reference's
+    integration benchmark runs it (``benchmarks/retrieval.py``) at MIND's
+    full width: ``build_mips(quantized=True)`` over the first
+    ``RECSYS_INDEX_N`` item rows (d + 1 = 65: three code words, the
+    ragged-d kernels; path ``recsys_build``), the interests of
+    ``RECSYS_USERS`` users as 64 queries through ``mips_search`` (path
+    ``recsys_retrieval``), each user's results merged by the true
+    max-over-interests dot product; recall@100 against exact
+    ``mind_retrieval`` over the same items and the distance budget
+    printed."""
+    from repro_torch.core import BuildParams
+    from repro_torch.core.mips import build_mips, ip_from_l2, mips_search
+    from repro_torch.models import recsys as rs
+
+    cfg, N, K = arch.model_cfg, RECSYS_INDEX_N, RECSYS_SEARCH["k"]
+    items = params["item_emb"][:N]
+    reset_counts()
+    t0 = time.perf_counter()
+    mips = build_mips(items.cpu().numpy(), BuildParams(**BUILD_PARAMS),
+                      quantized=True, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    counts["recsys_build"] = kernel_counts()
+    check(mips.index.codes.words == 3, "MIND's codes are not 3 words wide")
+
+    rng = np.random.default_rng(0)
+    hist = torch.from_numpy(rng.integers(0, N, (RECSYS_USERS, cfg.seq_len))
+                            .astype(np.int32)).cuda()
+    mask = torch.ones_like(hist, dtype=torch.bool)
+    caps = rs.mind_user_interests(cfg, params, hist, mask)   # [U, Kc, d]
+    flat_q = caps.reshape(-1, cfg.embed_dim).cpu().numpy()
+    plain = mips_search(mips, flat_q, backend="jnp", **RECSYS_SEARCH)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = mips_search(mips, flat_q, **RECSYS_SEARCH)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    counts["recsys_retrieval"] = kernel_counts()
+    for path, ragged in (("recsys_build",
+                          ("gather_l2_ragged", "batched_l2_ragged")),
+                         ("recsys_retrieval",
+                          ("gather_l2_ragged", "fused_estimate"))):
+        for kernel in ragged:
+            check(counts[path][kernel] > 0, f"{path} never launched {kernel}")
+        for kernel in ("gather_l2_blocks", "batched_l2_blocks"):
+            check(counts[path][kernel] == 0,
+                  f"{path} launched {kernel} {counts[path][kernel]} times")
+    share = agree(res.ids, plain.ids)
+    check(share >= MIN_AGREE,
+          f"MIND's index ids match the plain path on {share:.4f}")
+    ids = res.ids.long()
+    check(bool((ids >= 0).all()), "the index returned fewer than k items")
+    q = torch.from_numpy(flat_q).cuda()
+    exact_ip = torch.einsum("bd,bkd->bk", q, items[ids])
+    served_ip = torch.from_numpy(np.asarray(
+        ip_from_l2(flat_q, res.dists, mips.radius), np.float32)).cuda()
+    ip_err = float(((served_ip - exact_ip).abs()
+                    / (q.norm(dim=1, keepdim=True) * mips.radius)).max())
+    check(ip_err <= 1e-4, f"served inner products are off the exact ones "
+          f"by {ip_err:.3g} of ‖q‖·R")
+
+    _, want = rs.mind_retrieval(cfg, params, hist, mask,
+                                torch.arange(N, dtype=torch.int32,
+                                             device="cuda"), k=K)
+    per_user = ids.view(RECSYS_USERS, cfg.n_interests * K)
+    hits = 0
+    for b in range(RECSYS_USERS):
+        cand = torch.unique(per_user[b])
+        s = (caps[b] @ items[cand].T).amax(0)
+        got = cand[torch.sort(s, descending=True, stable=True).indices[:K]]
+        hits += len(set(got.tolist()) & set(want[b].tolist()))
+    out = dict(n_items=N, build_s=build_s, search_s=search_s,
+               recall_at_100=hits / (RECSYS_USERS * K), ids_equal_plain=share,
+               ip_err=ip_err,
+               exact_comps=float(res.n_dist_comps.float().mean()),
+               approx_comps=float(res.n_approx_comps.float().mean()),
+               brute_force_comps=N * cfg.n_interests)
+    print(f"[recsys] mind through the δ-EMQG index: {N:,} items "
+          f"d={cfg.embed_dim}+1 "
+          f"built in {build_s:.1f} s; {RECSYS_USERS} users × "
+          f"{cfg.n_interests} interests searched in {search_s:.3f} s; "
+          f"recall@{K} against exact mind_retrieval "
+          f"{out['recall_at_100']:.4f}; "
+          f"distance computations a query {out['exact_comps']:.1f} exact + "
+          f"{out['approx_comps']:.1f} approximate against "
+          f"{N:,} × {cfg.n_interests} = {out['brute_force_comps']:,} for "
+          f"brute force a user; ids equal to the plain path on {share:.4f} "
+          f"of {len(flat_q)} queries; served inner products within "
+          f"{ip_err:.3g} of ‖q‖·R; launches "
+          f"{json.dumps(counts['recsys_retrieval'])}; "
+          f"the build's {json.dumps(counts['recsys_build'])} ({card})")
+    return out
+
+
+def recsys_phase(torch, card: str, counts: dict, out: Path) -> dict:
+    """The four recsys archs at their published widths in f32, weights from
+    a seeded generator, one arch's tables on the card at a time:
+    ``recsys_serve``, ``recsys_checks``, for DIEN one profiled serve_p99
+    forward, for MIND ``mind_index``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    summary = {}
+    for aid in RECSYS_ARCHS:
+        t_arch = time.perf_counter()
+        arch = get_arch(aid)
+        cfg = arch.model_cfg
+        params = steps._RECSYS_INIT[aid](
+            cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        print(f"[recsys] {aid} ({arch.source}): {n_params:,} parameters, "
+              f"{4 * n_params / 1e9:.2f} GB in f32 on the card ({card})")
+        row = dict(params=n_params, **recsys_serve(torch, arch, params, card))
+        host = tree_map(lambda t: t.cpu(), params)
+        row.update(recsys_checks(torch, arch, params, host, card))
+        del host
+        if aid == "dien":
+            B = arch.shapes["serve_p99"].dims["batch"]
+            batch = steps.recsys_batch(aid, cfg, B, step=0, device="cuda")
+            prof, _ = _profiled(
+                torch, lambda: steps._RECSYS_SERVE[aid](cfg, params, batch),
+                "recsys_dien_serve_p99", out, cpu=False)
+            prof.update(arch=aid, batch=B, card=card)
+            print(f"[profile] {json.dumps(prof)}")
+            row["profile"] = prof
+        if aid == "mind":
+            row["index"] = mind_index(torch, arch, params, card, counts)
+        del params
+        torch.cuda.empty_cache()
+        summary[aid] = dict(row, seconds=time.perf_counter() - t_arch)
+    return summary
 
 
 def flash_rows(torch, card: str, cfg, S: int, path: str = "lm_prefill",
@@ -2010,14 +2414,15 @@ def _device_us(torch, event) -> float:
 def _profiled(torch, fn, phase: str, out: Path,
               cpu: bool = True) -> tuple[dict, list]:
     """``fn()`` under torch.profiler: (wall and device ms, the device's busy
-    share, kernel launches; the profiler's rows), with the operator tables
-    written to ``out``.  ``cpu=False`` records the device activity alone
+    share, kernel launches, the seconds the profiler took besides ``fn``;
+    the profiler's rows), with the operator tables written to ``out``.  ``cpu=False`` records the device activity alone
     (with the runtime's launch calls), which the profiler processes in a
     fraction of the time where the host runs many operators."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
     if cpu:
         acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     torch.cuda.synchronize()
+    t_enter = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
@@ -2038,7 +2443,8 @@ def _profiled(torch, fn, phase: str, out: Path,
     check(device_us > 0, f"the profile of {phase} shows no device time")
     return dict(phase=phase, wall_ms=wall_s * 1e3, device_ms=device_us / 1e3,
                 device_busy=device_us / 1e6 / wall_s,
-                kernel_launches=launches), avgs
+                kernel_launches=launches,
+                profiler_s=time.perf_counter() - t_enter - wall_s), avgs
 
 
 def profile_phase(torch, idx, vq, out: Path, card: str) -> None:
@@ -2046,9 +2452,13 @@ def profile_phase(torch, idx, vq, out: Path, card: str) -> None:
     128 queries with ``max_hops = PROFILE_HOPS`` (the profiler's own
     processing of a whole batch's ~300k launches took minutes), and over
     one 1024-node candidate search of the build (the build's own search
-    parameters), on the served index.  The device's busy share is its
-    kernel and copy time over the wall time (one stream, so the intervals
-    do not overlap); the profiler's own cost is in that wall time."""
+    parameters), on the served index, each with device activity alone
+    (``cpu=False``: the runtime's launch calls are kept, the host's
+    operators are not; with them the profiler's own processing took most
+    of the phase and stood in the wall time).  The device's busy share is
+    its kernel and copy time over the wall time (one stream, so the
+    intervals do not overlap); what the profiler still costs is in that
+    wall time."""
     from repro_torch.core import BuildParams, SearchParams, search
     from repro_torch.kernels.l2dist import ops as l2ops
     from repro_torch.serve import AnnServer
@@ -2072,7 +2482,7 @@ def profile_phase(torch, idx, vq, out: Path, card: str) -> None:
 
     for phase, fn in (("serve", serve), ("build_block", build_block)):
         hops0 = l2ops.LAUNCHES["gather_l2_tiled"]
-        row, _ = _profiled(torch, fn, phase, out)
+        row, _ = _profiled(torch, fn, phase, out, cpu=False)
         # one gather_l2_tiled launch per hop, plus one for the start distance
         hops = l2ops.LAUNCHES["gather_l2_tiled"] - hops0 - 1
         row.update(hops=hops,
@@ -2886,6 +3296,9 @@ def main(argv=None) -> int:
     timed("exact_build", exact_build_phase, torch, card, counts)
     timed("baselines", baselines_phase, torch, card)
     timed("mips", mips_phase, torch, card, counts)
+    recsys = timed("recsys", recsys_phase, torch, card, counts,
+                   ROOT / "build" / "profile")
+    torch.cuda.empty_cache()
     lm_rows, lm = timed("lm", lm_phase, torch, card, counts,
                         ROOT / "build" / "profile")
     rows.update(lm_rows)
@@ -2916,6 +3329,7 @@ def main(argv=None) -> int:
     print(f"[live-summary] {json.dumps(live)} card={card}")
     print(f"[resilient-summary] {json.dumps(resilient)} card={card}")
     print(f"[sharded-summary] {json.dumps(sharded)} card={card}")
+    print(f"[recsys-summary] {json.dumps(recsys)} card={card}")
     print(f"[serve-summary] {json.dumps(serve)} card={card} "
           f"wall={time.perf_counter() - t_start:.1f}s "
           f"phases={json.dumps(seconds)}")

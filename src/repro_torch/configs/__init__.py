@@ -1,1 +1,8 @@
-from .base import ArchSpec, ShapeSpec, get_arch, lm_shapes, register  # noqa: F401
+from .base import (  # noqa: F401
+    ArchSpec,
+    ShapeSpec,
+    get_arch,
+    lm_shapes,
+    recsys_shapes,
+    register,
+)

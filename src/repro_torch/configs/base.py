@@ -1,12 +1,13 @@
 """Arch / shape registry of the port: a copy of the part of
 ``repro.configs.base`` that the ported models use (``ShapeSpec``,
-``ArchSpec``, ``lm_shapes``, ``register``, ``get_arch``), with only the
-fields and shapes that a port path reads.
+``ArchSpec``, ``lm_shapes``, ``recsys_shapes``, ``register``,
+``get_arch``), with only the fields and shapes that a port path reads.
 
 An arch's module is listed in ``_ARCH_MODULES`` once its model is ported:
 smollm-135m came with the LM slice, the other four LM archs with the MoE
-slice; the recsys and GNN archs come with the slices that port their
-models.
+slice, fm, dcn-v2, dien and mind with the recsys slice; the GNN arch
+comes with the slice that ports its model.  ``family`` ("lm", "recsys")
+says which launcher can run an arch.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Any
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str                   # train | prefill (the kinds port paths run)
+    kind: str                   # train | prefill | serve | retrieval
     dims: dict                  # family-specific dimensions
     accum_steps: int = 1        # microbatch accumulation for train kinds
 
@@ -27,6 +28,7 @@ class ShapeSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     id: str
+    family: str                 # lm | recsys
     model_cfg: Any              # the family's config dataclass
     shapes: dict[str, ShapeSpec]
     source: str = ""            # provenance note
@@ -39,6 +41,10 @@ _ARCH_MODULES = [
     "internlm2_20b",
     "phi3_mini_3_8b",
     "smollm_135m",
+    "mind",
+    "dien",
+    "fm",
+    "dcn_v2",
 ]
 
 _REGISTRY: dict[str, ArchSpec] = {}
@@ -70,4 +76,18 @@ def lm_shapes(accum_train: int = 8) -> dict[str, ShapeSpec]:
                               accum_steps=accum_train),
         "prefill_32k": ShapeSpec("prefill_32k", "prefill",
                                  {"seq": 32768, "batch": 32}),
+    }
+
+
+def recsys_shapes() -> dict[str, ShapeSpec]:
+    """The reference's recsys shapes: ``serve_p99`` and ``serve_bulk`` (a
+    forward over the batch), ``retrieval_cand`` (one user against 10⁶
+    candidates; ``chip_smoke.py``'s recsys phase runs all three) and
+    ``train_batch``, which no port path runs yet."""
+    return {
+        "train_batch": ShapeSpec("train_batch", "train", {"batch": 65536}),
+        "serve_p99": ShapeSpec("serve_p99", "serve", {"batch": 512}),
+        "serve_bulk": ShapeSpec("serve_bulk", "serve", {"batch": 262144}),
+        "retrieval_cand": ShapeSpec("retrieval_cand", "retrieval",
+                                    {"batch": 1, "n_candidates": 1_000_000}),
     }

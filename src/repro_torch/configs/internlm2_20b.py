@@ -7,6 +7,7 @@ from repro_torch.models.transformer import LMConfig
 
 ARCH = register(ArchSpec(
     id="internlm2-20b",
+    family="lm",
     model_cfg=LMConfig(
         name="internlm2-20b",
         n_layers=48, d_model=6144, n_heads=48, n_kv_heads=8, head_dim=128,

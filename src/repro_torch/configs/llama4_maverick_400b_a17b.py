@@ -11,6 +11,7 @@ from repro_torch.models.transformer import LMConfig
 
 ARCH = register(ArchSpec(
     id="llama4-maverick-400b-a17b",
+    family="lm",
     model_cfg=LMConfig(
         name="llama4-maverick-400b-a17b",
         n_layers=48, d_model=5120, n_heads=40, n_kv_heads=8, head_dim=128,

@@ -10,6 +10,7 @@ from repro_torch.models.transformer import LMConfig
 
 ARCH = register(ArchSpec(
     id="moonshot-v1-16b-a3b",
+    family="lm",
     model_cfg=LMConfig(
         name="moonshot-v1-16b-a3b",
         n_layers=48, d_model=2048, n_heads=16, n_kv_heads=16, head_dim=128,

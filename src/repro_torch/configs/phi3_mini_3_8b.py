@@ -8,6 +8,7 @@ from repro_torch.models.transformer import LMConfig
 
 ARCH = register(ArchSpec(
     id="phi3-mini-3.8b",
+    family="lm",
     model_cfg=LMConfig(
         name="phi3-mini-3.8b",
         n_layers=32, d_model=3072, n_heads=32, n_kv_heads=32, head_dim=96,

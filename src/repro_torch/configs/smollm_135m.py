@@ -7,6 +7,7 @@ from repro_torch.models.transformer import LMConfig
 
 ARCH = register(ArchSpec(
     id="smollm-135m",
+    family="lm",
     model_cfg=LMConfig(
         name="smollm-135m",
         n_layers=30, d_model=576, n_heads=9, n_kv_heads=3, head_dim=64,

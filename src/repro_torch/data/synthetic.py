@@ -1,10 +1,11 @@
 """Deterministic synthetic data (numpy only).
 
-Copies of ``clustered_vectors`` (an ANN corpus) and of ``MarkovLM``,
+Copies of ``clustered_vectors`` (an ANN corpus), of ``MarkovLM``,
 ``make_markov_lm`` and ``lm_batch`` (a sparse Markov-chain language for
-LM prompts) from the JAX package's ``repro.data.synthetic``, so both
-packages make the same data from the same seed without the port importing
-that package.
+LM prompts) and of ``recsys_ctr_batch`` and ``recsys_seq_batch`` (click
+and behaviour logs for the recsys models) from the JAX package's
+``repro.data.synthetic``, so both packages make the same data from the
+same seed without the port importing that package.
 """
 
 from __future__ import annotations
@@ -55,3 +56,54 @@ def lm_batch(lm: MarkovLM, batch: int, seq: int, step: int,
     for t in range(seq):
         toks[:, t + 1] = lm.succ[toks[:, t], choices[:, t]]
     return toks[:, :-1], toks[:, 1:]
+
+
+# ---------------------------------------------------------------------------
+# RecSys click logs with planted latent factors
+# ---------------------------------------------------------------------------
+
+def recsys_ctr_batch(batch: int, step: int, n_dense: int = 13,
+                     n_sparse: int = 26, rows: int = 1 << 21,
+                     latent_dim: int = 8, seed: int = 0) -> dict:
+    """CTR batch: label = σ(⟨planted user factor, planted item factor⟩)."""
+    rng = np.random.default_rng((seed, step))
+    dense = rng.normal(size=(batch, n_dense)).astype(np.float32)
+    sparse = rng.integers(0, rows, size=(batch, n_sparse)).astype(np.int32)
+    # planted structure: hash sparse ids into latent space
+    phase = (sparse[:, :latent_dim] % 97).astype(np.float32) / 97.0
+    score = np.sum(np.cos(2 * np.pi * phase), axis=1) + 0.5 * dense[:, 0]
+    prob = 1.0 / (1.0 + np.exp(-score))
+    label = (rng.random(batch) < prob).astype(np.float32)
+    return {"dense": dense, "sparse_ids": sparse, "label": label}
+
+
+def recsys_seq_batch(batch: int, step: int, n_items: int, n_cats: int = 4096,
+                     seq_len: int = 100, n_neg: int = 16,
+                     n_interest_clusters: int = 128, seed: int = 0) -> dict:
+    """Sequential behavior logs: each user samples from 1–3 item clusters;
+    the positive target comes from one of them (retrievable structure)."""
+    rng = np.random.default_rng((seed, step))
+    cluster_size = max(n_items // n_interest_clusters, 1)
+    user_clusters = rng.integers(0, n_interest_clusters, size=(batch, 3))
+    pick = rng.integers(0, 3, size=(batch, seq_len))
+    base = user_clusters[np.arange(batch)[:, None], pick]
+    hist = (base * cluster_size
+            + rng.integers(0, cluster_size, (batch, seq_len))).astype(np.int32)
+    hist = np.minimum(hist, n_items - 1)
+    lengths = rng.integers(seq_len // 2, seq_len + 1, batch)
+    mask = np.arange(seq_len)[None, :] < lengths[:, None]
+    tgt_cluster = user_clusters[np.arange(batch), rng.integers(0, 3, batch)]
+    target = np.minimum(tgt_cluster * cluster_size
+                        + rng.integers(0, cluster_size, batch),
+                        n_items - 1).astype(np.int32)
+    neg = rng.integers(0, n_items, size=(batch, n_neg)).astype(np.int32)
+    label = rng.integers(0, 2, batch).astype(np.float32)
+    return {
+        "hist_items": hist,
+        "hist_cats": (hist % n_cats).astype(np.int32),
+        "hist_mask": mask,
+        "target_item": target,
+        "target_cat": (target % n_cats).astype(np.int32),
+        "neg_items": neg,
+        "label": label,
+    }

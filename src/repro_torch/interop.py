@@ -19,6 +19,11 @@ structure (gradients, AdamW moments, trained weights), so that a test
 compares the two packages' trees leaf for leaf.  ``train_state_from_numpy``
 carries a reference ``TrainState`` (its params, opt_state and step) across.
 
+``recsys_params_from_numpy`` takes a reference recsys model's parameter
+tree (FM, DCN-v2, DIEN or MIND: nested dicts, a 0-d ``bias``) as numpy
+arrays and returns the port's on ``device``; ``recsys_params_to_numpy``
+is its inverse.
+
 Nothing here imports the JAX package; the caller converts.
 """
 
@@ -31,7 +36,9 @@ import torch
 
 from .core.distributed import ShardedIndex
 from .core.types import EMQGIndex, GraphIndex, RaBitQCodes, resolve_device
+from .models import recsys as rs
 from .models.transformer import _is_moe_layer
+from .optim.adamw import tree_map
 
 
 def index_from_numpy(vectors, neighbors, medoid, kind: str = "delta_emg",
@@ -216,3 +223,39 @@ def train_state_from_numpy(cfg, params: dict, opt_state: dict, step,
                    "v": lm_params_from_numpy(cfg, opt_state["v"], device=dev),
                    "step": scalar(opt_state["step"])},
         step=scalar(step))
+
+
+_RECSYS_INITS = {rs.FMConfig: rs.fm_init, rs.DCNConfig: rs.dcn_init,
+                 rs.DIENConfig: rs.dien_init, rs.MINDConfig: rs.mind_init}
+
+
+def recsys_params_from_numpy(cfg, tree: dict, device="cuda") -> dict:
+    """The port's parameters of the recsys config ``cfg`` from the
+    reference's tree (nested dicts of numpy arrays), each leaf in its own
+    dtype.  A tree whose keys or shapes are not those of the port's init
+    for ``cfg`` (run on the meta device: nothing allocated) raises
+    ``ValueError`` before any tensor is made."""
+    dev = resolve_device(device)
+    want = tree_map(lambda t: tuple(t.shape),
+                    _RECSYS_INITS[type(cfg)](cfg, device="meta"))
+
+    def same(w, node, path):
+        if isinstance(w, dict):
+            if not isinstance(node, dict) or set(node) != set(w):
+                got = sorted(node) if isinstance(node, dict) else type(node)
+                raise ValueError(f"{cfg.name}: {path or 'the tree'} holds "
+                                 f"{got}, not the config's {sorted(w)}")
+            for k in w:
+                same(w[k], node[k], f"{path}/{k}")
+        elif tuple(np.shape(node)) != w:
+            raise ValueError(f"{cfg.name}: {path} has shape "
+                             f"{tuple(np.shape(node))}, not the config's {w}")
+
+    same(want, tree, "")
+    return tree_map(lambda x: _tensor(x, dev), tree)
+
+
+def recsys_params_to_numpy(params: dict) -> dict:
+    """A port recsys tree (parameters, gradients, moments) as the
+    reference's nested dicts of numpy arrays."""
+    return tree_map(_to_numpy, params)

@@ -16,8 +16,9 @@ cut to what the card holds (printed), under the reference's full-scale
 checkpoint and resume loop.  The reference's full path lowers its 256-chip
 dry-run cell, which has no meaning on one card.
 
-It refuses, with a message: an arch the port does not have (the recsys
-and GNN archs come with their slices), the full path off the card, and an
+It refuses, with a message: an arch that is not an LM (the recsys archs,
+whose models are ported but whose training is a later slice) or that the
+port does not have (the GNN arch), the full path off the card, and an
 arch whose parameters, gradients and AdamW state do not fit the card
 (``plan_micro_batch``: moonshot, llama4, internlm2 on an 80 GB card).
 """
@@ -37,6 +38,8 @@ from ..models import transformer as tf
 from ..optim import OptConfig
 from ..train import TrainState, make_train_step
 
+_LM_ONLY = ("the port trains its LM archs; training the recsys and GNN "
+            "archs (on the card, at train_batch) comes with a later slice")
 # the share of the card a run plans to fill: the rest is the allocator's
 # slack and the CUDA context
 CARD_SHARE = 0.9
@@ -171,8 +174,10 @@ def main(argv=None) -> int:
     try:
         arch = get_arch(args.arch)
     except KeyError as e:
-        raise SystemExit(f"[train] {e.args[0]}: the port trains its LM archs; "
-                         "the recsys and GNN archs come with their slices")
+        raise SystemExit(f"[train] {e.args[0]}: {_LM_ONLY}")
+    if arch.family != "lm":
+        raise SystemExit(f"[train] {arch.id} is a {arch.family} arch: "
+                         f"{_LM_ONLY}")
     if args.smoke:
         lm_smoke_loop(arch, args.steps, args.ckpt_dir, device=args.device)
     else:

@@ -1,3 +1,4 @@
-"""The port's models: the dense decoder-only LM (``transformer``) and its
-building blocks (``common``).  MoE, recsys and GNN models come with later
-slices."""
+"""The port's models: the dense and MoE decoder-only LM (``transformer``,
+``moe``), the recsys models FM, DCN-v2, DIEN and MIND (``recsys``) and
+their building blocks (``common``).  GNN models come with a later
+slice."""

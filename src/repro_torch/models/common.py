@@ -1,5 +1,6 @@
-"""Shared LM building blocks, on PyTorch.  Counterpart of the LM part of
-``repro.models.common`` (the GRU helpers come with the recsys slice).
+"""Shared model building blocks, on PyTorch.  Counterpart of
+``repro.models.common``: the LM blocks, and the GRU and MLP of the recsys
+models.
 
 Parameters are plain dicts of tensors; initializers draw from an explicit
 ``torch.Generator`` (it gives other numbers than ``jax.random`` from the
@@ -14,6 +15,9 @@ same seed: tests carry the reference's parameters across instead).
     autograd needs one
   * ``decode_attention`` — one new token against a KV cache (plain PyTorch:
     it is jnp in the reference, not a Pallas kernel)
+  * ``gru_init`` / ``gru_cell`` / ``gru_scan`` — DIEN's GRU and AUGRU, a
+    Python loop over time where the reference scans
+  * ``mlp_init`` / ``mlp_apply`` — ReLU towers
 """
 
 from __future__ import annotations
@@ -161,3 +165,76 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GRU (for DIEN), a loop over time
+# ---------------------------------------------------------------------------
+
+def gru_init(gen: Optional[torch.Generator], d_in: int, d_h: int,
+             dtype=torch.float32, device=None) -> dict:
+    dev = device or gen.device
+    return {
+        "w_x": dense_init(gen, d_in, 3 * d_h, dtype, device=dev),
+        "w_h": dense_init(gen, d_h, 3 * d_h, dtype, device=dev),
+        "b": torch.zeros((3 * d_h,), dtype=dtype, device=dev),
+    }
+
+
+def gru_cell(p: dict, h: torch.Tensor, x: torch.Tensor,
+             att: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One GRU step, the reference's arithmetic: ``n`` is computed again
+    from the last d_h columns of ``w_x``, ``w_h`` and ``b`` with ``r * h``.
+    ``att`` (a scalar a row) scales the update gate: AUGRU (DIEN eq. 5).
+    ``x`` may have one row against ``h``'s many: it broadcasts."""
+    zx = x @ p["w_x"] + h @ p["w_h"] + p["b"]
+    z, r, n = zx.chunk(3, dim=-1)
+    z = torch.sigmoid(z)
+    r = torch.sigmoid(r)
+    d_h = n.shape[-1]
+    n = torch.tanh(x @ p["w_x"][:, -d_h:] + (r * h) @ p["w_h"][:, -d_h:]
+                   + p["b"][-d_h:])
+    if att is not None:
+        z = z * att[..., None]
+    return (1.0 - z) * h + z * n
+
+
+def gru_scan(p: dict, xs: torch.Tensor, h0: Optional[torch.Tensor] = None,
+             atts: Optional[torch.Tensor] = None, keep_states: bool = True
+             ) -> tuple[Optional[torch.Tensor], torch.Tensor]:
+    """xs [B, T, d_in] → (all states [B, T, d_h], final state [B, d_h]).
+
+    ``h0`` [B', d_h] may have more rows than ``xs`` has (one): every row
+    then reads the same inputs (DIEN's retrieval runs one user's states
+    against each candidate's attention).  ``keep_states=False`` returns
+    None for the states and keeps only the running one."""
+    d_h = p["w_h"].shape[0]
+    if h0 is None:
+        h0 = torch.zeros((xs.shape[0], d_h), dtype=xs.dtype, device=xs.device)
+    h, states = h0, []
+    for t in range(xs.shape[1]):
+        h = gru_cell(p, h, xs[:, t], None if atts is None else atts[:, t])
+        if keep_states:
+            states.append(h)
+    return (torch.stack(states, 1) if keep_states else None), h
+
+
+def mlp_init(gen: Optional[torch.Generator], dims: list, dtype=torch.float32,
+             device=None) -> dict:
+    dev = device or gen.device
+    n = len(dims) - 1
+    return {
+        **{f"w{i}": dense_init(gen, dims[i], dims[i + 1], dtype, device=dev)
+           for i in range(n)},
+        **{f"b{i}": torch.zeros((dims[i + 1],), dtype=dtype, device=dev)
+           for i in range(n)},
+    }
+
+
+def mlp_apply(p: dict, x: torch.Tensor, n_layers: int,
+              final_act: bool = False) -> torch.Tensor:
+    for i in range(n_layers):
+        x = x @ p[f"w{i}"] + p[f"b{i}"]
+        if i < n_layers - 1 or final_act:
+            x = torch.relu(x)
+    return x

@@ -39,7 +39,11 @@ bitwise the slot the sharded build made, and the SPMD transport (two
 ranks on the one card, gloo between them) equals the single-controller
 search.  ``moe_apply`` on the card drops the entries its CPU run drops and
 agrees with it (f32 to 1e-5, bf16 within 2^-5 of the output's largest
-magnitude), and a bf16 MoE prefill gives the same logits twice.
+magnitude), and a bf16 MoE prefill gives the same logits twice.  The
+recsys archs' smoke configs on the card agree with the port on the CPU
+(f32 to rtol 1e-5 / atol 1e-6, retrieval ids identical with their exact
+ties in order), and MIPS search at MIND's d + 1 = 65 gives its plain
+path's ids.
 """
 
 import dataclasses
@@ -1260,3 +1264,70 @@ def test_flash_attention_bwd_refuses_what_the_kernel_does_not_take(
     with pytest.raises(RuntimeError, match="flash_attention_bwd"):
         flash_ops.flash_attention_bwd(q, k, v, do, do)
     assert flash_ops.LAUNCHES["flash_attention_bwd"] == before
+
+
+RECSYS_ARCHS = ("fm", "dcn-v2", "dien", "mind")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", RECSYS_ARCHS)
+def test_recsys_on_card_matches_cpu(cuda, arch_id):
+    """Each recsys arch's smoke config on the card against the port on the
+    CPU with the same parameters: the serve cell's output to rtol 1e-5 /
+    atol 1e-6 (f32, TF32 off: sums in another order); the retrieval over
+    the rows' last 8 candidates and 300 that clip onto one row (exact
+    ties), every candidate returned: ids identical, ties lowest index
+    first, scores to the same tolerance."""
+    from repro_torch.launch import steps
+    from repro_torch.optim.adamw import tree_map
+
+    cfg = get_arch(arch_id).smoke_cfg
+    host = steps._RECSYS_INIT[arch_id](cfg, torch.Generator().manual_seed(0),
+                                       device="cpu")
+    params = tree_map(lambda t: t.to(cuda), host)
+    batch = steps.recsys_batch(arch_id, cfg, 64, device="cpu")
+    want = steps._RECSYS_SERVE[arch_id](cfg, host, batch)
+    got = steps._RECSYS_SERVE[arch_id](
+        cfg, params, {k: v.to(cuda) for k, v in batch.items()})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+    past = cfg.rows if arch_id in ("fm", "dcn-v2") else cfg.n_items
+    cand = torch.cat([torch.arange(past - 8, past),
+                      past + 64 * torch.arange(300)]).to(torch.int32)
+    user = steps.recsys_batch(arch_id, cfg, 1, step=1, device="cpu")
+    fn = steps._RECSYS_RETRIEVAL[arch_id]
+    ws, wi = fn(cfg, host, user, cand, len(cand))
+    gs, gi = fn(cfg, params, {k: v.to(cuda) for k, v in user.items()},
+                cand.to(cuda), len(cand))
+    assert torch.equal(gi.cpu(), wi)
+    torch.testing.assert_close(gs.cpu(), ws, rtol=1e-5, atol=1e-6)
+    tie = gs[0, 1:] == gs[0, :-1]
+    assert int(tie.sum()) >= 299 and bool((gi[0, 1:] > gi[0, :-1])[tie].all())
+
+
+@pytest.mark.cuda
+def test_mips_search_at_d65_on_card_matches_plain(cuda):
+    """MIND's width through the MIPS index: d + 1 = 65 gives three code
+    words and the ragged-d register kernels (never the block kernels) in
+    the build and the exact tier, fused_estimate in the approximate tier;
+    ids equal the plain path's (``backend="jnp"``) on ≥ 99% of queries."""
+    from repro_torch.core.mips import build_mips, mips_search
+
+    items = clustered_vectors(3000, 64, 16, seed=2)
+    queries = clustered_vectors(64, 64, 16, seed=3)
+    before = dict(l2ops.KERNEL_LAUNCHES)
+    mips = build_mips(items, BuildParams(max_degree=12, beam_width=24, t=12,
+                                         iters=2, block=512),
+                      quantized=True, device=cuda)
+    assert mips.index.codes.words == 3
+    built = {k: v - before[k] for k, v in l2ops.KERNEL_LAUNCHES.items()}
+    assert built["gather_l2_ragged"] > 0 and built["batched_l2_ragged"] > 0
+    plain = mips_search(mips, queries, k=10, backend="jnp")
+    before = dict(l2ops.KERNEL_LAUNCHES, **bitdot_ops.LAUNCHES)
+    res = mips_search(mips, queries, k=10)
+    after = dict(l2ops.KERNEL_LAUNCHES, **bitdot_ops.LAUNCHES)
+    ran = {k: v - before[k] for k, v in after.items()}
+    assert ran["gather_l2_ragged"] > 0 and ran["fused_estimate"] > 0
+    for kernel in ("gather_l2_blocks", "batched_l2_blocks"):
+        assert built[kernel] == 0 and ran[kernel] == 0
+    assert (res.ids == plain.ids).all(1).float().mean().item() >= 0.99
