@@ -52,7 +52,8 @@ non-zero and prints no result line):
                benchmark shape [64, 64, 128], on no path), then timed with
                CUDA events over input sets that hold three times the card's
                L2 (``torch.cdist`` timed beside ``batched_l2`` as its
-               library yardstick); ``gather_l2_tiled``, ``gather_l2`` (one
+               library yardstick; the plain version over the first
+               ``PLAIN_SETS`` of them, which may sit in the L2); ``gather_l2_tiled``, ``gather_l2`` (one
                row a warp) and ``batched_l2`` each pick one of three kernels
                by d and alignment, and the kernel picked at a path's shape
                must launch on that path; where that is a ragged-d register
@@ -142,7 +143,10 @@ non-zero and prints no result line):
                sweep's launches); and the SPMD search, 2 ranks on the card
                in 2 processes with gloo between, equal to the single
                controller on every rank (its processes start right after
-               the build and run beside the rest of the phase);
+               the build and run beside the rest of the phase).  The single
+               controller searches its live slots in one lock-step loop
+               over their rows; ``host_reference_merge`` searches them one
+               after another, so its equality checks the lock-step too;
 10. exact   — ``build_exact`` (Algorithm 2) at n = 4,000, then Theorem 1:
    build      a greedy W = 1 search from the medoid for every corpus point
                returns that point at distance 0;
@@ -181,7 +185,43 @@ non-zero and prints no result line):
                recall@100 against exact ``mind_retrieval`` and the distance
                budget printed; ``[recsys]`` lines, a ``[recsys-summary]``
                line;
-14. lm      — smollm-135m at full width in bf16, weights from a seeded
+14. recsys_train — FM, DCN-v2, DIEN and MIND trained at published widths
+               in f32 at ``train_batch`` (65,536; ``plan_recsys_accum``
+               prints a microbatch cut where the card does not hold the
+               batch: none on an 80 GB card), one arch on the card
+               at a time: the loss and every gradient leaf on a batch of
+               512 against the port on the CPU with the parameters copied
+               there (``RECSYS_GRAD_TOL``; each arch's control,
+               ``recsys_train_control``, must break it);
+               ``RECSYS_TRAIN_STEPS`` steps of ``make_train_step`` under
+               ``_recsys_train_cell``'s ``OptConfig``, the loss finite,
+               seconds a step, samples/s, model TFLOP/s, peak memory;
+               DIEN's steps, timed too, under
+               ``torch.use_deterministic_algorithms``, a
+               checkpoint after step 3, restored, step 4 again: loss and
+               every state tensor bitwise; ``[recsys-train]`` lines and a
+               ``[recsys-train-summary]`` line;
+15. gnn     — gat-cora (arXiv:1710.10903) trained at its four cells in
+               f32 (weights from a seeded generator, ``_gnn_cell``'s
+               ``OptConfig``): full_graph_sm (``sbm_graph`` with cora's
+               2,708 nodes, 10,556 edges, 1,433 features) 8 full-batch
+               steps, the loss falling; molecule (``molecule_batch`` of
+               128 graphs, mean readout) 8 steps; minibatch_lg: a
+               reddit-shaped graph (232,965 nodes, 114,615,892 edges, 602
+               features), ``CSRGraph.from_edges`` on the card,
+               ``fanout_sample``
+               (15, 10) from 1,024 seed nodes padded to 180,224, nothing
+               cut, 2 steps, the host's seconds apart; ogb_products
+               (2,449,029 nodes, 61,859,140 edges) full-batch in the edge
+               chunks ``plan_edge_chunk`` sizes from the card's memory, 3
+               steps, the loss and gradients at the chunk against half of
+               it (``GNN_CHUNK_TOL``), 1,000 nodes' layer-0 output
+               against a float64 recomputation (``GNN_F64_TOL``); card =
+               CPU at the three small cells (``GNN_CPU_TOL``, the last 1%
+               of the edges dropped as the control); step seconds,
+               edges/s, model TFLOP/s, peak memory; ``[gnn]`` lines and a
+               ``[gnn-summary]`` line;
+16. lm      — smollm-135m at full width in bf16, weights from a seeded
                ``torch.Generator``: the ``flash_attention`` kernel (its bf16
                instance on the tensor cores, ``flash_attn_sm90.cu``) against
                the plain blockwise attention at the prefill's shape (q [1,
@@ -204,7 +244,7 @@ non-zero and prints no result line):
                ``decode_step``'s logits after the prompt against
                ``prefill``'s.  Controls with attention or the decode cache
                broken on purpose must break the logit bound;
-15. train   — smollm-135m trained at its published widths in bf16
+17. train   — smollm-135m trained at its published widths in bf16
                (``train_4k``'s sequence of 4,096; its batch of 256 cut to
                8 and its accumulation of 4 to 2): the backward kernels
                (``flash_attn_bwd_sm90.cu``, on the tensor cores from the
@@ -230,7 +270,7 @@ non-zero and prints no result line):
                flash forward's, backward's and GEMMs' shares); all under
                ``torch.use_deterministic_algorithms``; ``[train]`` and
                ``[train-summary]`` lines;
-16. moe     — moonshot-v1-16b-a3b at its published widths, its 48 layers
+18. moe     — moonshot-v1-16b-a3b at its published widths, its 48 layers
                cut to 16 (``MOE_LAYERS``, to win back the train phase's
                time), in bf16 (9.5 B parameters, 19 GB, from a seeded
                generator):
@@ -410,6 +450,35 @@ RECSYS_SEARCH = dict(k=100, alpha=1.2, l_max=256)
 # update small) to 0.542; the bound sits near the geometric mean of
 # 1.88e-6 and 5.79e-5.
 RECSYS_TOL = 1e-5
+# the recsys_train phase: train_batch's steps (the reference cell's
+# OptConfig), the card = CPU batch, DIEN's checkpoint step, and the bound
+# on the loss's and each gradient leaf's ‖card − CPU‖ / ‖CPU‖ (f32, TF32
+# off: sums in another order), between the sound readings and the
+# controls of recsys_train_control (PERF.md §2).  On an H100 the sound
+# readings were 8.6e-8 (FM) to 1.45e-4 (DCN-v2's embedding table: the
+# dense features' large terms cancel in its gradient), the controls
+# 8.77e-4 (MIND at two routing iterations) to 13; the bound sits near the
+# geometric mean of 1.45e-4 and 8.77e-4
+RECSYS_TRAIN_STEPS = 4
+RECSYS_CPU_BATCH = 512
+RECSYS_RESUME_AT = 3
+RECSYS_GRAD_TOL = 3.5e-4
+# the gnn phase: steps at each cell; the bound on card = CPU (logits,
+# loss, each gradient leaf's ‖Δ‖ / ‖CPU‖) with its control (the last 1%
+# of the real edges dropped), on the planned edge chunk against half of it
+# and on layer 0 against float64 (PERF.md §2).  On an H100 card = CPU read
+# at most 8.6e-7 and the controls 0.086-0.20 (the bound near their
+# geometric mean); chunk against half 3.8e-6 (atomics add the edges in
+# another order; a mid-size graph's attention vectors, whose gradients
+# nearly cancel, read 1.45e-4 of their own norm at 4,096-edge chunks);
+# float64 2.8e-7
+GNN_STEPS = {"full_graph_sm": 8, "molecule": 8, "minibatch_lg": 2,
+             "ogb_products": 3}
+GNN_CPU_TOL = 3e-4
+GNN_CONTROL_SHARE = 0.01
+GNN_CHUNK_TOL = 1e-4
+GNN_F64_NODES = 1000
+GNN_F64_TOL = 1e-5
 
 
 def fail(msg: str):
@@ -538,6 +607,11 @@ BITDOT_CASES = ((128, 24, "probe"), (128, 96, "W=4, no path here"))
 ESTIMATE_CASES = ((128, 24, 4, 128, "drain"), (128, 24, 5, 129, "mips"),
                   (64, 24, 3, 65, "recsys_retrieval"))
 ESTIMATE_TABLES = 8            # distinct 1M-row code tables the timing cycles
+# input sets the plain versions are timed over (the kernels over every
+# set): the plain time is a column, no yardstick, and at the small shapes
+# a capture of every set was thousands of Python calls (the d = 65
+# estimate row's 13.5 s, most of it the plain version's)
+PLAIN_SETS = 64
 # the kernels line: (kernel, path) of each row, which reports the kernel at
 # that path's shape and its launches there
 REPORTED = (("gather_l2_tiled", "drain"), ("gather_l2_tiled", "build"),
@@ -709,7 +783,7 @@ def kernel_phase(torch, card: str):
         check_misses_l2(torch, f"{name} [{B},{M}]", footprint)
         ms = device_ms(torch, lambda s: fn(base, ids[s], queries), sets=sets)
         plain_ms = device_ms(torch, lambda s: l2ref.gather_l2_ref(
-            base, ids[s], queries), sets=sets)
+            base, ids[s], queries), sets=min(sets, PLAIN_SETS))
         call = (host_us(torch, lambda: fn(base, ids[0], queries)),
                 host_us(torch, lambda: l2ref.gather_l2_ref(base, ids[0],
                                                            queries)))
@@ -732,7 +806,8 @@ def kernel_phase(torch, card: str):
             shape=f"ids[{B},{M}] base[{base.shape[0]},{d}]", max_abs_err=err,
             ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None, timed_sets=sets, timed_mb=footprint / 1e6,
+            library_ms=None, timed_sets=sets,
+            plain_sets=min(sets, PLAIN_SETS), timed_mb=footprint / 1e6,
             call_us=call[0], plain_call_us=call[1],
             row_s=time.perf_counter() - t_row, **blocks)
         del ids
@@ -758,7 +833,7 @@ def kernel_phase(torch, card: str):
         ms = device_ms(torch, lambda s: bitdot_ops.bitdot(codes[s], q_unit),
                        sets=sets)
         plain_ms = device_ms(torch, lambda s: bitdot_ref.bitdot_ref(
-            codes[s], q_unit), sets=sets)
+            codes[s], q_unit), sets=min(sets, PLAIN_SETS))
         call = (host_us(torch, lambda: bitdot_ops.bitdot(codes[0], q_unit)),
                 host_us(torch, lambda: bitdot_ref.bitdot_ref(codes[0], q_unit)))
         bound_ms, bound_by = bitdot_bound(torch, codes, q_unit)
@@ -769,7 +844,8 @@ def kernel_phase(torch, card: str):
             shape=f"codes[{B},{K},{W}] q[{B},{q_unit.shape[1]}]",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=None, timed_sets=sets,
-            timed_mb=footprint / 1e6, call_us=call[0], plain_call_us=call[1],
+            plain_sets=min(sets, PLAIN_SETS), timed_mb=footprint / 1e6,
+            call_us=call[0], plain_call_us=call[1],
             row_s=time.perf_counter() - t_row)
         del codes
     torch.cuda.empty_cache()
@@ -784,7 +860,8 @@ def kernel_phase(torch, card: str):
               f"{r['bound_ms'] / r['ms']:.3f} of the bound; library_ms "
               f"{'none' if lib is None else f'{lib:.5f}'}; host µs a call "
               f"{r['call_us']:.1f} (plain {r['plain_call_us']:.1f}); "
-              f"{r['timed_sets']} sets, {r['timed_mb']:.1f} MB, the row "
+              f"{r['timed_sets']} sets ({r['plain_sets']} for the plain "
+              f"version), {r['timed_mb']:.1f} MB, the row "
               f"{r['row_s']:.1f} s"
               + (f"; block kernel forced: ms {r['blocks_ms']:.5f} "
                  f"({r['blocks_ms'] / r['ms']:.3f}× this one's), "
@@ -934,7 +1011,7 @@ def estimate_rows(torch, g, n: int) -> dict:
         ms = device_ms(torch, lambda s: bitdot_ops.fused_estimate(*args(s)),
                        sets=sets)
         plain_ms = device_ms(torch, lambda s: bitdot_ref.fused_estimate_ref(
-            *args(s)), reps=5, sets=sets)
+            *args(s)), reps=5, sets=min(sets, PLAIN_SETS))
         call = (host_us(torch, lambda: bitdot_ops.fused_estimate(*args(0))),
                 host_us(torch, lambda: bitdot_ref.fused_estimate_ref(*args(0))))
         rows[("fused_estimate", path)] = dict(
@@ -943,7 +1020,8 @@ def estimate_rows(torch, g, n: int) -> dict:
             replaces="src/repro/kernels/bitdot/bitdot.py:78", path=path,
             shape=f"ids[{B},{K}] codes[{n},{W}] d={d}", max_abs_err=err,
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None, timed_sets=sets, timed_mb=footprint / 1e6,
+            library_ms=None, timed_sets=sets,
+            plain_sets=min(sets, PLAIN_SETS), timed_mb=footprint / 1e6,
             call_us=call[0], plain_call_us=call[1],
             row_s=time.perf_counter() - t_row)
         del tables, ids, args
@@ -994,7 +1072,7 @@ def batched_l2_rows(torch, g) -> dict:
         ms = device_ms(torch, lambda s: l2ops.batched_l2(tiles[s], queries[s]),
                        sets=sets)
         plain_ms = device_ms(torch, lambda s: l2ref.batched_l2_ref(
-            tiles[s], queries[s]), sets=sets)
+            tiles[s], queries[s]), sets=min(sets, PLAIN_SETS))
         library_ms = device_ms(torch, lambda s: torch.cdist(
             tiles[s], queries[s][:, None, :]), sets=sets)
         call = (host_us(torch, lambda: l2ops.batched_l2(tiles[0], queries[0])),
@@ -1016,7 +1094,8 @@ def batched_l2_rows(torch, g) -> dict:
             replaces="src/repro/kernels/l2dist/l2dist.py:60", path=path,
             shape=f"rows[{B},{M},{d}]", max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=library_ms, timed_sets=sets, timed_mb=footprint / 1e6,
+            library_ms=library_ms, timed_sets=sets,
+            plain_sets=min(sets, PLAIN_SETS), timed_mb=footprint / 1e6,
             call_us=call[0], plain_call_us=call[1],
             row_s=time.perf_counter() - t_row, **blocks)
         del tiles, queries
@@ -1633,6 +1712,434 @@ def recsys_phase(torch, card: str, counts: dict, out: Path) -> dict:
         torch.cuda.empty_cache()
         summary[aid] = dict(row, seconds=time.perf_counter() - t_arch)
     return summary
+
+
+def _loss_and_grads(torch, loss, params, batch) -> tuple[float, list]:
+    """(the loss, its gradient with respect to every leaf of ``params`` in
+    tree order, zeros for a leaf the loss does not read)."""
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    value, _ = loss(tree_unflatten(params, leaves), batch)
+    grads = torch.autograd.grad(value, leaves, allow_unused=True)
+    return float(value.detach()), [
+        torch.zeros_like(p) if g is None else g.detach()
+        for p, g in zip(leaves, grads)]
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """The "/"-joined paths of a tree's leaves, in ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}/{i}")]
+    return [prefix.lstrip("/")]
+
+
+def _against_host(torch, grads: list, host: list) -> tuple[float, int]:
+    """(the largest per-leaf ‖card − CPU‖ / ‖CPU‖, its leaf's index), each
+    CPU leaf copied to the card in turn and compared there."""
+    errs = [_rel_errors([g], [h.to(g.device)])[0]
+            for g, h in zip(grads, host)]
+    return max(errs), int(np.argmax(errs))
+
+
+def recsys_train_control(torch, arch_id: str):
+    """The arch's loss of (cfg, params, batch) with ``recsys_control``'s
+    part broken: FM without its pairwise term, DCN-v2 without its last
+    cross layer, DIEN's attention at 1 (its BCE over those forwards), MIND
+    at one routing iteration fewer."""
+    from repro_torch.models import recsys as rs
+
+    if arch_id == "mind":
+        return lambda cfg, p, b: rs.mind_loss(
+            dataclasses.replace(cfg, routing_iters=cfg.routing_iters - 1),
+            p, b)
+    forward = recsys_control(torch, arch_id)
+    return lambda cfg, p, b: rs._bce(forward(cfg, p, b), b["label"])
+
+
+def recsys_train_phase(torch, card: str) -> dict:
+    """FM, DCN-v2, DIEN and MIND trained at published widths in f32 at
+    ``train_batch`` (65,536; the microbatch cut ``plan_recsys_accum``
+    prints), one arch on the card at a time: card = CPU on one batch of
+    ``RECSYS_CPU_BATCH`` (the loss and every gradient leaf, each arch's
+    control over the bound), ``RECSYS_TRAIN_STEPS`` steps of
+    ``make_train_step`` under ``_recsys_train_cell``'s ``OptConfig``
+    (the loss finite), seconds a step, samples/s, model TFLOP/s, peak
+    memory; DIEN under ``torch.use_deterministic_algorithms`` with a
+    checkpoint after step ``RECSYS_RESUME_AT``, restored, the last step
+    run again: loss and state bitwise."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import plan_recsys_accum
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train import TrainState, make_train_step
+
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    summary = {}
+    for aid in RECSYS_ARCHS:
+        t_arch = time.perf_counter()
+        arch = get_arch(aid)
+        cfg = arch.model_cfg
+        B = arch.shapes["train_batch"].dims["batch"]
+        accum = plan_recsys_accum(arch, card_bytes)
+        params = steps._RECSYS_INIT[aid](
+            cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        print(f"[recsys-train] {aid}: {n_params:,} parameters, f32 state "
+              f"{16 * n_params / 1e9:.2f} GB; train_batch {B:,} as {accum} "
+              f"× {B // accum:,} samples ({card})")
+
+        def loss(p, b, aid=aid, cfg=cfg):
+            return steps._RECSYS_LOSS[aid](cfg, p, b)
+
+        control = recsys_train_control(torch, aid)
+        small = steps.recsys_batch(aid, cfg, RECSYS_CPU_BATCH, step=0,
+                                   device="cuda")
+        host = tree_map(lambda t: t.cpu(), params)
+        h_loss, h_grads = _loss_and_grads(
+            torch, loss, host, {k: v.cpu() for k, v in small.items()})
+        del host
+        k_loss, k_grads = _loss_and_grads(torch, loss, params, small)
+        sound, worst = _against_host(torch, k_grads, h_grads)
+        del k_grads
+        _, x_grads = _loss_and_grads(
+            torch, lambda p, b: control(cfg, p, b), params, small)
+        ctrl, _ = _against_host(torch, x_grads, h_grads)
+        del x_grads, h_grads
+        loss_err = abs(k_loss - h_loss) / abs(h_loss)
+        print(f"[recsys-train] {aid} card = CPU on a batch of "
+              f"{RECSYS_CPU_BATCH}: loss {k_loss:.7f} vs {h_loss:.7f} "
+              f"(relative {loss_err:.3g}); the largest per-leaf gradient "
+              f"‖Δ‖/‖CPU‖ {sound:.3g} ({_leaf_names(params)[worst]}), "
+              f"control {ctrl:.3g} (bound "
+              f"{RECSYS_GRAD_TOL}) ({card})")
+        check(loss_err <= RECSYS_GRAD_TOL and sound <= RECSYS_GRAD_TOL,
+              f"{aid}: the card's loss or gradients differ from the CPU's: "
+              f"{loss_err}, {sound} > {RECSYS_GRAD_TOL}")
+        check(ctrl > RECSYS_GRAD_TOL, f"{aid}: the gradient bound "
+              f"{RECSYS_GRAD_TOL} does not see its control ({ctrl})")
+
+        opt = OptConfig(total_steps=100000)      # _recsys_train_cell's
+        step_fn = make_train_step(loss, opt, accum_steps=accum)
+
+        def batch_of(s, aid=aid, cfg=cfg, B=B, accum=accum):
+            b = steps.recsys_batch(aid, cfg, B, step=s, device="cuda")
+            return b if accum == 1 else {
+                k: v.reshape(accum, B // accum, *v.shape[1:])
+                for k, v in b.items()}
+
+        batches = [batch_of(s) for s in range(RECSYS_TRAIN_STEPS)]
+        state = TrainState.create(params, opt)
+        del params
+        resume = aid == "dien"
+        ckpt_dir = ROOT / "build" / "recsys_train" / "ckpt"
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        mgr = CheckpointManager(str(ckpt_dir), every=RECSYS_RESUME_AT,
+                                keep=1, async_save=False)
+        torch.use_deterministic_algorithms(resume)
+        try:
+            losses, step_s = [], []
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            for s in range(RECSYS_TRAIN_STEPS):
+                t0 = time.perf_counter()
+                state, m = step_fn(state, batches[s])
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                losses.append(float(m["loss"]))
+                if resume:
+                    mgr.maybe_save(s + 1, state)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            if resume:
+                t0 = time.perf_counter()
+                step0, back = mgr.restore(state, device="cuda")
+                restore_s = time.perf_counter() - t0
+                check(step0 == RECSYS_RESUME_AT and int(back.step) == step0,
+                      f"dien: restored step {step0}, state step "
+                      f"{int(back.step)}")
+                for s in range(RECSYS_RESUME_AT, RECSYS_TRAIN_STEPS):
+                    back, m = step_fn(back, batches[s])
+                same = all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves([state.params, state.opt_state, state.step]),
+                    tree_leaves([back.params, back.opt_state, back.step])))
+                check(float(m["loss"]) == losses[-1] and same,
+                      f"dien resumed at step {RECSYS_RESUME_AT}: loss "
+                      f"{float(m['loss'])} against {losses[-1]}, state "
+                      f"bitwise {same}")
+                del back
+        finally:
+            torch.use_deterministic_algorithms(False)
+        check(all(np.isfinite(losses)), f"{aid}: a loss is not finite: "
+              f"{losses}")
+        secs = float(np.median(step_s[1:]))
+        flops = 3 * steps._recsys_model_flops(arch, B)
+        row = dict(params=n_params, batch=B, accum=accum, losses=losses,
+                   first_step_s=step_s[0], step_s=secs,
+                   samples_per_s=B / secs,
+                   model_tflop_per_s=flops / secs / 1e12, peak_gb=peak_gb,
+                   loss_rel_err=loss_err, grad_rel_err=sound,
+                   grad_control=ctrl, deterministic=resume)
+        if resume:
+            row.update(resume_at=RECSYS_RESUME_AT, resumed_bitwise=True,
+                       restore_s=restore_s)
+        print(f"[recsys-train] {aid}: {RECSYS_TRAIN_STEPS} steps of {B:,} "
+              f"({accum} × {B // accum:,}), loss "
+              + " → ".join(f"{x:.5f}" for x in losses)
+              + f"; {secs:.4f} s a step ("
+              + ("under torch.use_deterministic_algorithms, which "
+                 "launch.train does not set; " if resume else "")
+              + f"median of steps 2-{RECSYS_TRAIN_STEPS}, synchronised; "
+              f"first {step_s[0]:.3f}), "
+              f"{B / secs:.0f} samples/s, {flops / secs / 1e12:.3f} model "
+              f"TFLOP/s (3 × _recsys_model_flops), peak {peak_gb:.2f} GB"
+              + (f"; resumed from its step-{RECSYS_RESUME_AT} checkpoint "
+                 f"(restore {restore_s:.2f} s): the last step's loss and "
+                 f"every state tensor bitwise the uninterrupted run's, "
+                 f"deterministic algorithms on" if resume else "")
+              + f" ({card})")
+        del state, batches
+        torch.cuda.empty_cache()
+        summary[aid] = dict(row, seconds=time.perf_counter() - t_arch)
+    return summary
+
+
+def gat_layer0_f64(torch, p: dict, x, src, dst, nodes, cfg):
+    """Layer 0's output at ``nodes`` recomputed in float64 from their own
+    in-edges alone: the scores, a softmax over each node's in-edges, the
+    messages, ELU and the bias."""
+    H, slope = cfg.n_heads, cfg.negative_slope
+    sel = torch.isin(dst, nodes)
+    s_e, d_e = src[sel].long(), dst[sel].long()
+    where = torch.full((x.shape[0],), -1, dtype=torch.long, device=x.device)
+    where[nodes.long()] = torch.arange(nodes.numel(), device=x.device)
+    pos = where[d_e]
+    w = p["w"].double()
+    hs = (x[s_e].double() @ w).reshape(s_e.numel(), H, -1)
+    hd = (x[nodes.long()].double() @ w).reshape(nodes.numel(), H, -1)
+    e = (torch.einsum("ehd,hd->eh", hs, p["a_src"].double())
+         + torch.einsum("nhd,hd->nh", hd, p["a_dst"].double())[pos])
+    e = torch.where(e >= 0, e, slope * e)
+    top = torch.full((nodes.numel(), H), float("-inf"), dtype=torch.float64,
+                     device=x.device).scatter_reduce(
+        0, pos[:, None].expand(-1, H), e, "amax")
+    z = torch.exp(e - top[pos])
+    den = torch.zeros_like(top).index_add(0, pos, z)
+    agg = torch.zeros_like(hd).index_add(0, pos, z[:, :, None] * hs)
+    out = agg / torch.clamp_min(den[:, :, None], 1e-9)
+    return (torch.nn.functional.elu(out).reshape(nodes.numel(), -1)
+            + p["b"].double())
+
+
+def gnn_cpu_check(torch, arch, shape_name: str, params, batch, card: str):
+    """Card = CPU at a cell: the logits, loss and every gradient leaf of
+    the port on the card against the port on the CPU with the parameters
+    copied there; the control, the last ``GNN_CONTROL_SHARE`` of the real
+    edges dropped on the card, must read over ``GNN_CPU_TOL``."""
+    from repro_torch.launch import steps
+    from repro_torch.models import gnn
+    from repro_torch.optim.adamw import tree_map
+
+    cfg = arch.model_cfg[shape_name]
+    loss = steps.gnn_loss(cfg)
+    host_b = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+              for k, v in batch.items()}
+    host = tree_map(lambda t: t.cpu(), params)
+    h_loss, h_grads = _loss_and_grads(torch, loss, host, host_b)
+    k_loss, k_grads = _loss_and_grads(torch, loss, params, batch)
+    with torch.no_grad():
+        h_out = gnn.forward(cfg, host, host_b["x"], host_b["src"],
+                            host_b["dst"])
+        k_out = gnn.forward(cfg, params, batch["x"], batch["src"],
+                            batch["dst"])
+    out_err = rel_err(k_out.cpu(), h_out)
+    sound, worst = _against_host(torch, k_grads, h_grads)
+    real = torch.nonzero(batch["src"] >= 0)[:, 0]
+    cut = real[-max(1, int(GNN_CONTROL_SHARE * real.numel())):]
+    broken = dict(batch, src=batch["src"].index_fill(0, cut, -1),
+                  dst=batch["dst"].index_fill(0, cut, -1))
+    ctrl, _ = _against_host(torch, _loss_and_grads(torch, loss, params,
+                                                   broken)[1], h_grads)
+    loss_err = abs(k_loss - h_loss) / abs(h_loss)
+    print(f"[gnn] {shape_name} card = CPU: logits {out_err:.3g}, loss "
+          f"{k_loss:.7f} vs {h_loss:.7f} ({loss_err:.3g}), the largest "
+          f"per-leaf gradient ‖Δ‖/‖CPU‖ {sound:.3g} "
+          f"({_leaf_names(params)[worst]}); control ({cut.numel()} "
+          f"of {real.numel()} edges dropped) {ctrl:.3g} (bound "
+          f"{GNN_CPU_TOL}) ({card})")
+    check(max(out_err, loss_err, sound) <= GNN_CPU_TOL,
+          f"gnn {shape_name}: the card differs from the CPU: logits "
+          f"{out_err}, loss {loss_err}, gradients {sound} > {GNN_CPU_TOL}")
+    check(ctrl > GNN_CPU_TOL, f"gnn {shape_name}: the bound {GNN_CPU_TOL} "
+          f"does not see its control ({ctrl})")
+    return dict(logits_rel_err=out_err, loss_rel_err=loss_err,
+                grad_rel_err=sound, grad_control=ctrl)
+
+
+def gnn_phase(torch, card: str) -> dict:
+    """gat-cora trained on the card at its four cells (weights from a
+    seeded generator, f32, ``_gnn_cell``'s ``OptConfig``): full_graph_sm
+    and molecule ``GNN_STEPS`` steps each (the loss finite, falling on
+    the full graph), minibatch_lg on two sampled subgraphs of a
+    reddit-shaped graph (nothing cut by the pads; the host's graph, CSR
+    and sampler seconds apart from the steps'), ogb_products full-batch
+    in edge chunks (``plan_edge_chunk``): the loss finite, the planned
+    chunk against half of it, 1,000 nodes' layer-0 output against a
+    float64 recomputation; card = CPU at the three small cells.  The
+    large cells' graphs are made here, in ``data_s``: ``sbm_graph`` on
+    the host, minibatch_lg's ``CSRGraph.from_edges`` on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import gnn
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainState, make_train_step
+
+    arch = get_arch("gat-cora")
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    summary = {}
+    for name in ("full_graph_sm", "molecule", "minibatch_lg", "ogb_products"):
+        t_cell = time.perf_counter()
+        cfg, shape = arch.model_cfg[name], arch.shapes[name]
+        n_nodes, n_edges, _ = steps._gnn_sizes(shape)
+        chunk = gnn.plan_edge_chunk(cfg, n_nodes, n_edges, card_bytes)
+        params = gnn.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda")
+        row = dict(nodes=n_nodes, edges=n_edges, edge_chunk=chunk)
+        t0 = time.perf_counter()
+        if shape.kind == "full_graph":
+            full = steps.gnn_batch(arch, name, 0, device="cuda")
+            check(full["src"].numel() == n_edges,
+                  f"{name}: sbm_graph gave {full['src'].numel()} edges, "
+                  f"not the cell's {n_edges}")
+            batches = [full] * GNN_STEPS[name]
+        else:
+            batches = [steps.gnn_batch(arch, name, s, device="cuda")
+                       for s in range(GNN_STEPS[name])]
+        row["data_s"] = time.perf_counter() - t0
+        if shape.kind == "minibatch":
+            for b in batches:
+                steps.check_untruncated(b, shape)
+            row.update(graph_s=batches[0]["graph_s"],
+                       csr_s=batches[0]["csr_s"],
+                       sample_s=[b["sample_s"] for b in batches],
+                       sub_nodes=[b["n_sub_nodes"] for b in batches],
+                       sub_edges=[b["n_sub_edges"] for b in batches])
+            print(f"[gnn] {name}: a reddit-shaped sbm_graph "
+                  f"({shape.dims['n_nodes']:,} "
+                  f"nodes, {shape.dims['n_edges']:,} edges, "
+                  f"{shape.dims['d_feat']} features) {row['graph_s']:.2f} s "
+                  f"on the host, CSRGraph.from_edges {row['csr_s']:.2f} s "
+                  f"on the card, "
+                  f"fanout {shape.dims['fanout']} from "
+                  f"{shape.dims['batch_nodes']} seed nodes "
+                  + ", ".join(f"{s:.2f}" for s in row["sample_s"])
+                  + " s: subgraphs of "
+                  + ", ".join(f"{a:,} nodes / {e:,} edges" for a, e in
+                              zip(row["sub_nodes"], row["sub_edges"]))
+                  + f", none cut by the pads ({shape.dims['pad_nodes']:,} / "
+                  f"{shape.dims['pad_edges']:,}) ({card})")
+        elif shape.kind == "full_graph":
+            row["graph_s"] = full["graph_s"]
+        if name != "ogb_products":
+            row.update(gnn_cpu_check(torch, arch, name, params, batches[0],
+                                     card))
+        opt = OptConfig(total_steps=1000)             # _gnn_cell's
+        loss = steps.gnn_loss(cfg, chunk)
+        step_fn = make_train_step(loss, opt)
+        if name == "ogb_products":
+            row.update(ogb_checks(torch, cfg, params, full, chunk, card))
+        state = TrainState.create(params, opt)
+        del params
+        losses, step_s = [], []
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        for b in batches:
+            t0 = time.perf_counter()
+            state, m = step_fn(state, b)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(all(np.isfinite(losses)), f"gnn {name}: a loss is not finite: "
+              f"{losses}")
+        if name == "full_graph_sm":
+            check(losses[-1] < losses[0], f"gnn {name}: the loss did not "
+                  f"fall: {losses}")
+        secs = float(np.median(step_s[1:])) if len(step_s) > 1 else step_s[0]
+        flops = steps._gnn_model_flops(arch, name)
+        row.update(losses=losses, first_step_s=step_s[0], step_s=secs,
+                   edges_per_s=n_edges / secs,
+                   model_tflop_per_s=flops / secs / 1e12, peak_gb=peak_gb)
+        print(f"[gnn] {name}: {n_nodes:,} nodes, {n_edges:,} edges, "
+              + ("in one piece" if chunk is None else
+                 f"in chunks of {chunk:,} edges (plan_edge_chunk)")
+              + f"; {len(losses)} steps, loss "
+              + " → ".join(f"{x:.5f}" for x in losses)
+              + f"; {secs:.4f} s a step (median after the first, "
+              f"synchronised; first {step_s[0]:.3f}), {n_edges / secs:.4g} "
+              f"edges/s, {flops / secs / 1e12:.4f} model TFLOP/s "
+              f"(_gnn_model_flops), peak {peak_gb:.2f} GB; data "
+              f"{row['data_s']:.2f} s ({card})")
+        del state, batches
+        if shape.kind == "full_graph":
+            del full
+        torch.cuda.empty_cache()
+        summary[name] = dict(row, seconds=time.perf_counter() - t_cell)
+    steps.host_graph.cache_clear()
+    return summary
+
+
+def ogb_checks(torch, cfg, params, batch, chunk: int, card: str) -> dict:
+    """ogb_products before its steps: the loss and gradients at the planned
+    chunk against half of it (``GNN_CHUNK_TOL``), and layer 0's output at
+    ``GNN_F64_NODES`` random nodes against ``gat_layer0_f64``
+    (``GNN_F64_TOL`` of its largest magnitude)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import gnn
+
+    check(chunk is not None and chunk < batch["src"].numel(),
+          f"ogb_products planned in one piece ({chunk})")
+    t0 = time.perf_counter()
+    a_loss, a_grads = _loss_and_grads(torch, steps.gnn_loss(cfg, chunk),
+                                      params, batch)
+    b_loss, b_grads = _loss_and_grads(torch, steps.gnn_loss(cfg, chunk // 2),
+                                      params, batch)
+    halves = max(_rel_errors(a_grads, b_grads))
+    del a_grads, b_grads
+    grads_s = time.perf_counter() - t0
+    x, src, dst = batch["x"], batch["src"], batch["dst"]
+    with torch.no_grad():
+        out0 = gnn._gat_layer(params["layer0"], x, src, dst, src >= 0,
+                              x.shape[0], cfg.n_heads, cfg.negative_slope,
+                              mean_heads=False, edge_chunk=chunk)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    nodes = torch.randperm(x.shape[0], device="cuda", generator=gen)[
+        :GNN_F64_NODES].to(torch.int32)
+    want = gat_layer0_f64(torch, params["layer0"], x, src, dst, nodes, cfg)
+    f64 = rel_err(out0[nodes.long()].double(), want)
+    del out0
+    loss_err = abs(a_loss - b_loss) / abs(b_loss)
+    print(f"[gnn] ogb_products: chunks of {chunk:,} against {chunk // 2:,} "
+          f"on the same parameters: loss {a_loss:.7f} vs {b_loss:.7f} "
+          f"({loss_err:.3g}), the largest per-leaf gradient ‖Δ‖/‖·‖ "
+          f"{halves:.3g} (bound {GNN_CHUNK_TOL}; {grads_s:.2f} s for both); "
+          f"layer 0 at {GNN_F64_NODES} random nodes against a float64 "
+          f"recomputation from their own in-edges: {f64:.3g} of its largest "
+          f"magnitude (bound {GNN_F64_TOL}) ({card})")
+    check(max(loss_err, halves) <= GNN_CHUNK_TOL,
+          f"ogb_products: chunk {chunk} and {chunk // 2} differ: loss "
+          f"{loss_err}, gradients {halves}")
+    check(f64 <= GNN_F64_TOL, f"ogb_products: layer 0 differs from its "
+          f"float64 recomputation by {f64}")
+    return dict(chunk_half_loss_err=loss_err, chunk_half_grad_err=halves,
+                layer0_f64_err=f64)
 
 
 def flash_rows(torch, card: str, cfg, S: int, path: str = "lm_prefill",
@@ -2946,7 +3453,8 @@ def sharded_phase(torch, card: str, counts: dict) -> dict:
 
     from repro_torch.core import BuildParams, SearchParams
     from repro_torch.core.distances import brute_force_knn
-    from repro_torch.core.distributed import (ShardedIndex, build_replicated,
+    from repro_torch.core.distributed import (ShardedIndex, _stacked,
+                                              build_replicated,
                                               host_reference_merge,
                                               make_sharded_search,
                                               spmd_search)
@@ -3108,10 +3616,30 @@ def sharded_phase(torch, card: str, counts: dict) -> dict:
     live = srv.registry.participation()
     healthy_mask = np.zeros_like(live)
     healthy_mask[::R] = True
-    ref_i, ref_d = host_reference_merge(
-        sidx, type(srv.registry)(S, R), stages[0], params, quantized=True)
+    # the memory a search takes over what is held: the lock-step loop of
+    # the S live slots (their bitsets a slot wide) against the slots one
+    # at a time; the stack it searches is a copy of the S·R slots, made on
+    # the index's first search and kept
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     ring_i, ring_d = make_sharded_search("ring", quantized=True)(
         sidx, stages[0], params, valid=healthy_mask)
+    lock_mb = (torch.cuda.max_memory_allocated() - held) / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    ref_i, ref_d = host_reference_merge(
+        sidx, type(srv.registry)(S, R), stages[0], params, quantized=True)
+    seq_mb = (torch.cuda.max_memory_allocated() - held) / 2**20
+    graph, codes, _ = _stacked(sidx)
+    stack_mb = sum(t.numel() * t.element_size() for t in (
+        graph.vectors, graph.neighbors, codes.codes, codes.norms,
+        codes.ip_xo)) / 2**20
+    out.update(search_mib=dict(lockstep=lock_mb, one_at_a_time=seq_mb,
+                               stack=stack_mb))
+    print(f"[sharded] a batch of {SHARDED_STAGE} over the {S} live slots "
+          f"takes {lock_mb:.1f} MiB over what is held in one lock-step "
+          f"search, {seq_mb:.1f} MiB searched one slot at a time "
+          f"(host_reference_merge); the stack it searches, a copy of the "
+          f"{S * R} slots kept on the index, {stack_mb:.1f} MiB ({card})")
     for name, ids, d in (("all_gather", healthy, healthy_d),
                          ("ring", ring_i.cpu(), ring_d.cpu())):
         check(torch.equal(ids.long(), torch.as_tensor(ref_i).long())
@@ -3298,6 +3826,12 @@ def main(argv=None) -> int:
     timed("mips", mips_phase, torch, card, counts)
     recsys = timed("recsys", recsys_phase, torch, card, counts,
                    ROOT / "build" / "profile")
+    torch.cuda.empty_cache()
+    recsys_train = timed("recsys_train", recsys_train_phase, torch, card)
+    print(f"[recsys-train-summary] {json.dumps(recsys_train)} card={card}")
+    torch.cuda.empty_cache()
+    gnn = timed("gnn", gnn_phase, torch, card)
+    print(f"[gnn-summary] {json.dumps(gnn)} card={card}")
     torch.cuda.empty_cache()
     lm_rows, lm = timed("lm", lm_phase, torch, card, counts,
                         ROOT / "build" / "profile")

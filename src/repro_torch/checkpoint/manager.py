@@ -103,20 +103,22 @@ def _flatten(tree) -> dict[str, np.ndarray]:
     return {_key(p): _host(leaf) for p, leaf in _leaves(tree)}
 
 
-def _unflatten(tree, new: dict):
-    """``tree``'s structure with each leaf replaced by ``new[path]``."""
-    def walk(node, path):
-        if isinstance(node, dict):
-            return {k: walk(node[k], path + (k,)) for k in node}
-        if dataclasses.is_dataclass(node) and not isinstance(node, type):
-            return dataclasses.replace(node, **{
-                f.name: walk(getattr(node, f.name), path + (f".{f.name}",))
-                for f in dataclasses.fields(node)})
-        if isinstance(node, (list, tuple)):
-            out = [walk(v, path + (i,)) for i, v in enumerate(node)]
-            return type(node)(out) if isinstance(node, tuple) else out
-        return None if node is None else new[path]
-    return walk(tree, ())
+def _unflatten(tree, new: dict, path=()):
+    """``tree``'s structure with each leaf replaced by ``new[path]`` (a
+    recursive function, not a closure: a self-calling closure is a
+    reference cycle that would hold ``new`` until the garbage collector
+    runs)."""
+    if isinstance(tree, dict):
+        return {k: _unflatten(tree[k], new, path + (k,)) for k in tree}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _unflatten(getattr(tree, f.name), new,
+                               path + (f".{f.name}",))
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, (list, tuple)):
+        out = [_unflatten(v, new, path + (i,)) for i, v in enumerate(tree)]
+        return type(tree)(out) if isinstance(tree, tuple) else out
+    return None if tree is None else new[path]
 
 
 def _checksum(arr: np.ndarray) -> int:

@@ -5,9 +5,9 @@
 
 An arch's module is listed in ``_ARCH_MODULES`` once its model is ported:
 smollm-135m came with the LM slice, the other four LM archs with the MoE
-slice, fm, dcn-v2, dien and mind with the recsys slice; the GNN arch
-comes with the slice that ports its model.  ``family`` ("lm", "recsys")
-says which launcher can run an arch.
+slice, fm, dcn-v2, dien and mind with the recsys slice, gat-cora with the
+GNN slice.  ``family`` ("lm", "recsys", "gnn") says which of
+``launch.train``'s loops trains an arch.
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ from typing import Any
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str                   # train | prefill | serve | retrieval
+    kind: str                   # train | prefill | serve | retrieval |
+    #                             full_graph | minibatch | molecule
     dims: dict                  # family-specific dimensions
     accum_steps: int = 1        # microbatch accumulation for train kinds
 
@@ -28,7 +29,7 @@ class ShapeSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     id: str
-    family: str                 # lm | recsys
+    family: str                 # lm | recsys | gnn
     model_cfg: Any              # the family's config dataclass
     shapes: dict[str, ShapeSpec]
     source: str = ""            # provenance note
@@ -45,6 +46,7 @@ _ARCH_MODULES = [
     "dien",
     "fm",
     "dcn_v2",
+    "gat_cora",
 ]
 
 _REGISTRY: dict[str, ArchSpec] = {}
@@ -83,7 +85,8 @@ def recsys_shapes() -> dict[str, ShapeSpec]:
     """The reference's recsys shapes: ``serve_p99`` and ``serve_bulk`` (a
     forward over the batch), ``retrieval_cand`` (one user against 10⁶
     candidates; ``chip_smoke.py``'s recsys phase runs all three) and
-    ``train_batch``, which no port path runs yet."""
+    ``train_batch`` (``launch.train``'s recsys loop and ``chip_smoke.py``'s
+recsys_train phase)."""
     return {
         "train_batch": ShapeSpec("train_batch", "train", {"batch": 65536}),
         "serve_p99": ShapeSpec("serve_p99", "serve", {"batch": 512}),

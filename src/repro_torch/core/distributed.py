@@ -17,14 +17,22 @@ approximation, as on one node).
 
 Where the JAX package stacks the shards into one pytree with a leading
 dim S and runs them under ``shard_map``, the port keeps a **tuple of
-per-slot indexes** (``ShardedIndex.slots``): nothing in PyTorch needs the
-stack, and replacing a slot (``repair.install_slot``) is a new tuple with
-one entry swapped.  The mesh becomes two forms of the search that give
-the same merged answer:
+per-slot indexes** (``ShardedIndex.slots``): replacing a slot
+(``repair.install_slot``) is a new tuple with one entry swapped.  The
+mesh becomes two forms of the search that give the same merged answer:
 
 * **Single controller** (``make_sharded_search``): one process searches
   every participating slot on its device and merges on the device — what
-  the server and the card's smoke use.  The ring merge takes the order the
+  the server and the card's smoke use.  The slots share one shape, so
+  their searches run as one lock-step loop over S·B rows, as the
+  reference's stacked ``shard_map`` runs them: the slots' rows side by
+  side as one index, each query once a slot, each row starting at its
+  slot's medoid (``_lockstep_search``).  A row's hops read only its own
+  slot's rows, so each slot's list is the one its own search gives, bit
+  for bit; the host loop takes as many hops as the slowest slot, not
+  their sum.  The stack is a copy of the slots, made on an index's first
+  search and kept on it (``_stacked``); each row's visited bitset covers
+  its own slot's rows only.  The ring merge takes the order the
   reference's caller sees, rank 0's copy: its own list, then S−1, …, 1,
   each step a stable top-k of ``[acc, next]`` (on ties the earlier entry
   wins).
@@ -66,11 +74,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import rabitq
 from .build_approx import BuildParams, build_approx
 from .emqg import build_emqg
-from .probing import probing_search
-from .search import as_queries, search
-from .types import EMQGIndex, GraphIndex, SearchParams, stable_topk_smallest
+from .probing import _beam_probing_batch, probing_search
+from .search import (_beam_search_batch, _true_dists, as_queries,
+                     make_batch_dist_fn, resolve_backend, search)
+from .types import (EMQGIndex, GraphIndex, RaBitQCodes, SearchParams,
+                    stable_topk_smallest)
 
 
 def _graph(index) -> GraphIndex:
@@ -221,6 +232,82 @@ def _local_search(index, queries, params: SearchParams, quantized: bool,
     return search(index, queries, params, backend=backend)
 
 
+def _stacked(sidx: ShardedIndex):
+    """Every slot of ``sidx`` side by side as one index, for the lock-step
+    search: ``(graph, codes, bases)``, the slots' vectors, neighbour lists
+    (shifted by each slot's first row, ``bases[slot]``) and, for δ-EMQG
+    slots, their codes.  Made on the first search of ``sidx`` and kept on
+    it: a ``ShardedIndex`` does not change (``repair.install_slot`` makes
+    a new one), so the copy is made once, not once a batch."""
+    st = sidx.__dict__.get("_stack")
+    if st is not None:
+        return st
+    graphs = [_graph(x) for x in sidx.slots]
+    bases = np.cumsum([0] + [g.n for g in graphs[:-1]]).tolist()
+    graph = dataclasses.replace(
+        graphs[0], vectors=torch.cat([g.vectors for g in graphs]),
+        neighbors=torch.cat([torch.where(g.neighbors >= 0, g.neighbors + b,
+                                         g.neighbors)
+                             for g, b in zip(graphs, bases)]), medoid=0)
+    codes = None
+    if isinstance(sidx.slots[0], EMQGIndex):
+        c0 = sidx.slots[0].codes
+        codes = RaBitQCodes(
+            codes=torch.cat([x.codes.codes for x in sidx.slots]),
+            norms=torch.cat([x.codes.norms for x in sidx.slots]),
+            ip_xo=torch.cat([x.codes.ip_xo for x in sidx.slots]),
+            rotation=c0.rotation, center=c0.center, dim=c0.dim)
+    st = (graph, codes, bases)
+    object.__setattr__(sidx, "_stack", st)   # not a field: never compared
+    return st
+
+
+def _lockstep_search(sidx: ShardedIndex, live: list, q: torch.Tensor,
+                     params: SearchParams, quantized: bool,
+                     backend: str = "auto") -> list:
+    """The ``live`` slots' searches of the queries ``q`` [B, d] as one
+    lock-step search over S·B rows of ``_stacked(sidx)``: the queries
+    once a live slot, each row starting at its slot's medoid, with its
+    slot's RaBitQ query context, and a visited bitset that covers its
+    slot's rows alone (``seen_base``), so the bitsets take S·B rows of
+    one slot's width.  Returns each live slot's (local ids, dists)
+    [B, k], equal to its own ``_local_search``'s: every step of the
+    engine is per row, and a row's ids stay in its slot's rows."""
+    graph, codes, bases = _stacked(sidx)
+    slots = [sidx.slots[s] for s in live]
+    width = max(_graph(x).n for x in slots)
+    B, k = q.shape[0], params.k
+    qs = q.repeat(len(live), 1)
+
+    def per_row(values):
+        return torch.tensor(values, dtype=torch.int32,
+                            device=q.device).repeat_interleave(B)
+
+    base = per_row([bases[s] for s in live])
+    start = base + per_row([_graph(x).medoid for x in slots])
+    exact = make_batch_dist_fn(graph.vectors, backend)
+    if quantized:
+        ctxs = [rabitq.prepare_query(x.codes, q) for x in slots]
+        ctx = rabitq.QueryCtx(
+            q=qs, q_unit=torch.cat([c.q_unit for c in ctxs]),
+            sum_q=torch.cat([c.sum_q for c in ctxs]),
+            norm_q=torch.cat([c.norm_q for c in ctxs]), sqrt_d=ctxs[0].sqrt_d)
+        estimate = (rabitq.estimate_sqdist_plain
+                    if resolve_backend(backend, q.device) == "jnp"
+                    else rabitq.estimate_sqdist)
+        st = _beam_probing_batch(graph.neighbors, width, exact,
+                                 lambda ids: estimate(codes, ctx, ids), qs,
+                                 start, params, seen_base=base)
+        ids, d2 = st.ce_ids[:, :k], st.ce_d2[:, :k]
+    else:
+        st = _beam_search_batch(graph, qs, start, params, exact,
+                                seen_base=base, seen_n=width)
+        ids, d2 = st.cand_ids[:, :k], st.cand_d2[:, :k]
+    dists = _true_dists(d2)
+    return [(torch.where(i >= 0, i - bases[s], i), d)
+            for i, d, s in zip(ids.split(B), dists.split(B), live)]
+
+
 def _masked(ids: torch.Tensor, dists: torch.Tensor, offset: int,
             size: Optional[int]):
     """Global ids and distances of one slot's list: pad rows (local id ≥
@@ -275,14 +362,18 @@ def make_sharded_search(merge: str = "all_gather", quantized: bool = False,
     """Single-controller sharded search.
 
     Returns ``run(sidx, queries [B, d], params, valid=None, around=None) →
-    (ids, dists)`` ``[B, k]`` tensors on the index's device.  Each
-    participating slot (``valid[slot]``, default all) is searched with
-    ``probing_search`` (``quantized``) or ``search`` on ``backend``, one
-    after another, each inside ``around(slot)`` where that context manager
-    is given (the server's per-shard spans); its list is masked (pad rows,
-    invalid ids) and offset to global ids; non-participating slots
-    contribute (-1, inf) and are not searched; the lists are merged with
-    ``merge``; an id whose distance is not finite becomes -1.
+    (ids, dists)`` ``[B, k]`` tensors on the index's device.  The
+    participating slots (``valid[slot]``, default all) are searched as
+    ``probing_search`` (``quantized``) or ``search`` on ``backend`` would
+    search each, all at once in one lock-step loop (``_lockstep_search``).
+    Where the context manager ``around`` is given (the server's per-shard
+    spans), the search runs inside ``around(slot)`` of every participating
+    slot, entered in slot order, so each slot's span covers the one search
+    its slot took part in.
+    Each list is masked (pad rows, invalid ids) and offset to global ids;
+    non-participating slots contribute (-1, inf) and are not searched; the
+    lists are merged with ``merge``; an id whose distance is not finite
+    becomes -1.
     """
     _check_merge(merge)
 
@@ -291,15 +382,20 @@ def make_sharded_search(merge: str = "all_gather", quantized: bool = False,
         valid = np.ones(sidx.n_shards, bool) if valid is None \
             else np.asarray(valid, bool)
         q = as_queries(queries, sidx.device)
+        live = [slot for slot in range(sidx.n_shards) if valid[slot]]
+        found = {}
+        if live:
+            with contextlib.ExitStack() as spans:
+                for slot in live if around is not None else ():
+                    spans.enter_context(around(slot))
+                found = dict(zip(live, _lockstep_search(
+                    sidx, live, q, params, quantized, backend)))
         lists = []
-        for slot, local in enumerate(sidx.slots):
+        for slot in range(sidx.n_shards):
             if not valid[slot]:
                 lists.append(_dead(q.shape[0], params.k, q.device))
                 continue
-            with (around(slot) if around is not None
-                  else contextlib.nullcontext()):
-                res = _local_search(local, q, params, quantized, backend)
-            lists.append(_masked(res.ids, res.dists, sidx.offsets[slot],
+            lists.append(_masked(*found[slot], sidx.offsets[slot],
                                  None if sidx.sizes is None
                                  else sidx.sizes[slot]))
         if merge == "ring":

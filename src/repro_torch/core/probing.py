@@ -35,6 +35,7 @@ from .search import (
     make_batch_dist_fn,
     resolve_backend,
     resolve_beam_width,
+    seen_keys,
     select_top_w,
 )
 from .types import (
@@ -67,7 +68,12 @@ class _BeamPState(NamedTuple):
 def _beam_probing_batch(neighbors: torch.Tensor, n_nodes: int,
                         batch_exact: Callable, batch_approx: Callable,
                         queries: torch.Tensor, start: torch.Tensor,
-                        p: SearchParams) -> _BeamPState:
+                        p: SearchParams,
+                        seen_base: Optional[torch.Tensor] = None
+                        ) -> _BeamPState:
+    """The lock-step probing loop; the visited bitset covers ``n_nodes``
+    rows, from each row's ``seen_base`` on where given (``search.
+    seen_keys``)."""
     B = queries.shape[0]
     C = p.l_max + 1
     W = resolve_beam_width(p, C)
@@ -87,7 +93,8 @@ def _beam_probing_batch(neighbors: torch.Tensor, n_nodes: int,
     ca_ids = torch.full((B, C), INVALID_ID, **i32)
     ca_d2 = torch.full((B, C), inf, device=dev)
     ca_prb = torch.zeros((B, C), dtype=torch.bool, device=dev)
-    seen = bitset_set(bitset_make(B, n_nodes, dev), start[:, None])
+    seen = bitset_set(bitset_make(B, n_nodes, dev),
+                      seen_keys(start[:, None], seen_base))
     d2_last = d2_s
     l = torch.full((B,), min(max(p.l0, p.k), p.l_max), **i32)
     n_dist = torch.ones(B, **i32)
@@ -141,9 +148,9 @@ def _beam_probing_batch(neighbors: torch.Tensor, n_nodes: int,
         nbrs = neighbors[u_ids.clamp_min(0).long()]
         nbrs = torch.where(selv_u[:, :, None], nbrs,
                            torch.full_like(nbrs, INVALID_ID)).reshape(B, W * M)
-        fresh = (nbrs >= 0) & ~bitset_test(seen, nbrs)
+        fresh = (nbrs >= 0) & ~bitset_test(seen, seen_keys(nbrs, seen_base))
         new_ids = unique_per_row(nbrs, fresh)
-        seen = bitset_set(seen, new_ids)
+        seen = bitset_set(seen, seen_keys(new_ids, seen_base))
         d2a = batch_approx(new_ids)                                # [B, W·M]
         n_approx = n_approx + _count(new_ids >= 0)
         # encounters: valid neighbor ids pre-dedup, plus probed candidates

@@ -162,7 +162,7 @@ def adaptive_transition(p: SearchParams, cand_d2: torch.Tensor,
 
 
 def faithful_prune_merge(cand_ids, cand_d2, cand_vis, new_ids, d2_new,
-                         seen, l, cap: int):
+                         seen, l, cap: int, seen_base=None):
     """Literal Alg.-3 line-9 merge: full sort of buffer ∪ fresh, keep the
     top ``l+1`` per row, and clear the visited bits of pruned candidates
     that were never expanded so they can re-enter once ``l`` grows.
@@ -178,7 +178,8 @@ def faithful_prune_merge(cand_ids, cand_d2, cand_vis, new_ids, d2_new,
     keep = pos <= l[:, None]
     invalid = torch.full_like(ids_s, INVALID_ID)
     # pruned ∧ unexpanded → clearable; ids are unique per row
-    seen = bitset_clear(seen, torch.where(keep | vis_s, invalid, ids_s))
+    seen = bitset_clear(seen, seen_keys(
+        torch.where(keep | vis_s, invalid, ids_s), seen_base))
     return (torch.where(keep, ids_s, invalid)[:, :cap],
             torch.where(keep, d2_s, torch.full_like(d2_s, float("inf")))[:, :cap],
             (keep & vis_s)[:, :cap],
@@ -189,10 +190,25 @@ def _count(mask: torch.Tensor) -> torch.Tensor:
     return mask.sum(1, dtype=torch.int32)
 
 
+def seen_keys(ids: torch.Tensor, base: Optional[torch.Tensor]):
+    """``ids`` as the visited bitset keys them: with ``base`` [B] (the
+    first row of each query row's slot in a stacked index) ``ids − base``
+    row by row, so a bitset covers one slot's rows; invalid ids stay
+    negative."""
+    if base is None:
+        return ids
+    return torch.where(ids >= 0, ids - base[:, None], ids)
+
+
 def _beam_search_batch(graph: GraphIndex, queries: torch.Tensor,
                        start: torch.Tensor, p: SearchParams,
                        batch_dist: Callable,
-                       faithful_prune: bool = False) -> _BeamState:
+                       faithful_prune: bool = False,
+                       seen_base: Optional[torch.Tensor] = None,
+                       seen_n: Optional[int] = None) -> _BeamState:
+    """The lock-step beam loop.  ``seen_base`` / ``seen_n``: each row
+    visits only the ``seen_n`` rows from its ``seen_base`` on (a slot of a
+    stacked index), and its visited bitset covers those alone."""
     B = queries.shape[0]
     C = p.l_max + 1
     W = resolve_beam_width(p, C)
@@ -207,7 +223,8 @@ def _beam_search_batch(graph: GraphIndex, queries: torch.Tensor,
     cand_d2 = torch.full((B, C), float("inf"), device=dev)
     cand_d2[:, 0] = batch_dist(queries, start[:, None])[:, 0]
     cand_vis = torch.zeros((B, C), dtype=torch.bool, device=dev)
-    seen = bitset_set(bitset_make(B, graph.n, dev), start[:, None])
+    seen = bitset_set(bitset_make(B, graph.n if seen_n is None else seen_n,
+                                  dev), seen_keys(start[:, None], seen_base))
     l = torch.full((B,), min(max(p.l0, p.k), p.l_max), **i32)
     n_dist = torch.ones(B, **i32)
     n_enc = torch.ones(B, **i32)
@@ -235,9 +252,9 @@ def _beam_search_batch(graph: GraphIndex, queries: torch.Tensor,
         nbrs = torch.where(selv[:, :, None], nbrs,
                            torch.full_like(nbrs, INVALID_ID)).reshape(B, W * M)
         n_enc = n_enc + _count(nbrs >= 0)
-        fresh = (nbrs >= 0) & ~bitset_test(seen, nbrs)
+        fresh = (nbrs >= 0) & ~bitset_test(seen, seen_keys(nbrs, seen_base))
         new_ids = unique_per_row(nbrs, fresh)                       # [B, W·M]
-        seen = bitset_set(seen, new_ids)
+        seen = bitset_set(seen, seen_keys(new_ids, seen_base))
 
         # -- the hot path: one fused gather+L2 over the whole batch ---------
         d2_new = batch_dist(queries, new_ids)
@@ -246,7 +263,8 @@ def _beam_search_batch(graph: GraphIndex, queries: torch.Tensor,
 
         if faithful_prune:
             cand_ids, cand_d2, cand_vis, seen = faithful_prune_merge(
-                cand_ids, cand_d2, cand_vis, new_ids, d2_new, seen, l, C)
+                cand_ids, cand_d2, cand_vis, new_ids, d2_new, seen, l, C,
+                seen_base)
         else:
             cand_ids, cand_d2, cand_vis = batch_merge_topc(
                 cand_ids, cand_d2, cand_vis, new_ids, d2_new,

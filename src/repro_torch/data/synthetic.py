@@ -2,10 +2,12 @@
 
 Copies of ``clustered_vectors`` (an ANN corpus), of ``MarkovLM``,
 ``make_markov_lm`` and ``lm_batch`` (a sparse Markov-chain language for
-LM prompts) and of ``recsys_ctr_batch`` and ``recsys_seq_batch`` (click
-and behaviour logs for the recsys models) from the JAX package's
-``repro.data.synthetic``, so both packages make the same data from the
-same seed without the port importing that package.
+LM prompts), of ``recsys_ctr_batch`` and ``recsys_seq_batch`` (click
+and behaviour logs for the recsys models) and of ``sbm_graph`` and
+``molecule_batch`` (a stochastic-block-model graph and batches of small
+graphs for the GAT) from the JAX package's ``repro.data.synthetic``,
+so both packages make the same data from the same seed without the port
+importing that package.
 """
 
 from __future__ import annotations
@@ -107,3 +109,61 @@ def recsys_seq_batch(batch: int, step: int, n_items: int, n_cats: int = 4096,
         "neg_items": neg,
         "label": label,
     }
+
+
+# ---------------------------------------------------------------------------
+# Graphs
+# ---------------------------------------------------------------------------
+
+def sbm_graph(n_nodes: int, n_comms: int, d_feat: int, avg_degree: float = 4.0,
+              p_in_frac: float = 0.9, seed: int = 0) -> dict:
+    """Stochastic block model with community labels + noisy indicator feats."""
+    rng = np.random.default_rng(seed)
+    comm = rng.integers(0, n_comms, n_nodes).astype(np.int32)
+    n_edges = int(n_nodes * avg_degree)
+    src = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    same = rng.random(n_edges) < p_in_frac
+    # in-community targets: random node of the same community via rejection
+    dst = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    # cheap same-community rewire: sort nodes by community, pick neighbor slots
+    order = np.argsort(comm, kind="stable")
+    starts = np.searchsorted(comm[order], np.arange(n_comms))
+    ends = np.searchsorted(comm[order], np.arange(n_comms) + 1)
+    cs = comm[src]
+    lo, hi = starts[cs], np.maximum(ends[cs], starts[cs] + 1)
+    in_comm = order[(lo + rng.integers(0, 1 << 30, n_edges) % np.maximum(hi - lo, 1))]
+    dst = np.where(same, in_comm, dst).astype(np.int32)
+    feats = (np.eye(n_comms, dtype=np.float32)[comm][:, :d_feat]
+             if d_feat <= n_comms else None)
+    if feats is None:
+        feats = np.zeros((n_nodes, d_feat), np.float32)
+        feats[np.arange(n_nodes), comm % d_feat] = 1.0
+    feats = feats + 0.3 * rng.normal(size=feats.shape).astype(np.float32)
+    # symmetrize
+    src2 = np.concatenate([src, dst])
+    dst2 = np.concatenate([dst, src])
+    return {"x": feats, "src": src2.astype(np.int32),
+            "dst": dst2.astype(np.int32), "labels": comm,
+            "n_classes": n_comms}
+
+
+def molecule_batch(batch: int, nodes_per_graph: int, edges_per_graph: int,
+                   d_feat: int, n_classes: int, step: int, seed: int = 0) -> dict:
+    """Block-diagonal batch of small random graphs; label = parity of a
+    planted motif count (learnable)."""
+    rng = np.random.default_rng((seed, step))
+    N = batch * nodes_per_graph
+    x = rng.normal(size=(N, d_feat)).astype(np.float32)
+    src = np.concatenate([
+        rng.integers(0, nodes_per_graph, edges_per_graph) + g * nodes_per_graph
+        for g in range(batch)
+    ]).astype(np.int32)
+    dst = np.concatenate([
+        rng.integers(0, nodes_per_graph, edges_per_graph) + g * nodes_per_graph
+        for g in range(batch)
+    ]).astype(np.int32)
+    graph_ids = np.repeat(np.arange(batch), nodes_per_graph).astype(np.int32)
+    feat_sum = x.reshape(batch, nodes_per_graph, d_feat).sum((1, 2))
+    labels = ((feat_sum > 0).astype(np.int32)) % n_classes
+    return {"x": x, "src": src, "dst": dst, "graph_ids": graph_ids,
+            "labels": labels, "node_mask": np.ones(N, bool)}

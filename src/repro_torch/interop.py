@@ -22,7 +22,8 @@ carries a reference ``TrainState`` (its params, opt_state and step) across.
 ``recsys_params_from_numpy`` takes a reference recsys model's parameter
 tree (FM, DCN-v2, DIEN or MIND: nested dicts, a 0-d ``bias``) as numpy
 arrays and returns the port's on ``device``; ``recsys_params_to_numpy``
-is its inverse.
+is its inverse.  ``gnn_params_from_numpy`` and ``gnn_params_to_numpy`` do
+the same for the GAT's ``layer{i}/{w, a_src, a_dst, b}`` tree.
 
 Nothing here imports the JAX package; the caller converts.
 """
@@ -36,6 +37,7 @@ import torch
 
 from .core.distributed import ShardedIndex
 from .core.types import EMQGIndex, GraphIndex, RaBitQCodes, resolve_device
+from .models import gnn
 from .models import recsys as rs
 from .models.transformer import _is_moe_layer
 from .optim.adamw import tree_map
@@ -225,19 +227,20 @@ def train_state_from_numpy(cfg, params: dict, opt_state: dict, step,
         step=scalar(step))
 
 
-_RECSYS_INITS = {rs.FMConfig: rs.fm_init, rs.DCNConfig: rs.dcn_init,
-                 rs.DIENConfig: rs.dien_init, rs.MINDConfig: rs.mind_init}
+_INITS = {rs.FMConfig: rs.fm_init, rs.DCNConfig: rs.dcn_init,
+          rs.DIENConfig: rs.dien_init, rs.MINDConfig: rs.mind_init,
+          gnn.GATConfig: gnn.init}
 
 
-def recsys_params_from_numpy(cfg, tree: dict, device="cuda") -> dict:
-    """The port's parameters of the recsys config ``cfg`` from the
+def _params_from_numpy(cfg, tree: dict, device) -> dict:
+    """The port's parameters of the recsys or GAT config ``cfg`` from the
     reference's tree (nested dicts of numpy arrays), each leaf in its own
     dtype.  A tree whose keys or shapes are not those of the port's init
     for ``cfg`` (run on the meta device: nothing allocated) raises
     ``ValueError`` before any tensor is made."""
     dev = resolve_device(device)
     want = tree_map(lambda t: tuple(t.shape),
-                    _RECSYS_INITS[type(cfg)](cfg, device="meta"))
+                    _INITS[type(cfg)](cfg, device="meta"))
 
     def same(w, node, path):
         if isinstance(w, dict):
@@ -255,7 +258,26 @@ def recsys_params_from_numpy(cfg, tree: dict, device="cuda") -> dict:
     return tree_map(lambda x: _tensor(x, dev), tree)
 
 
+def recsys_params_from_numpy(cfg, tree: dict, device="cuda") -> dict:
+    """The port's parameters of the recsys config ``cfg`` from the
+    reference's tree (see ``_params_from_numpy``)."""
+    return _params_from_numpy(cfg, tree, device)
+
+
 def recsys_params_to_numpy(params: dict) -> dict:
     """A port recsys tree (parameters, gradients, moments) as the
     reference's nested dicts of numpy arrays."""
+    return tree_map(_to_numpy, params)
+
+
+def gnn_params_from_numpy(cfg, tree: dict, device="cuda") -> dict:
+    """The port's GAT parameters of ``cfg`` from the reference's tree
+    (``layer{i}`` dicts of numpy arrays), checked against the port's init
+    for ``cfg`` (see ``_params_from_numpy``)."""
+    return _params_from_numpy(cfg, tree, device)
+
+
+def gnn_params_to_numpy(params: dict) -> dict:
+    """A port GAT tree (parameters, gradients, moments) as the reference's
+    nested dicts of numpy arrays."""
     return tree_map(_to_numpy, params)

@@ -1,19 +1,35 @@
-"""The recsys part of the reference's ``repro.launch.steps`` that has a
-meaning on one card: each arch's initializer and loss (``_RECSYS_INIT``,
+"""The recsys and GNN parts of the reference's ``repro.launch.steps``
+that have a meaning on one card.
+
+Recsys: each arch's initializer and loss (``_RECSYS_INIT``,
 ``_RECSYS_LOSS``), the forward its serve cell runs (``_RECSYS_SERVE``,
 the function of ``_recsys_serve_cell``), its retrieval over candidates
 (``_RECSYS_RETRIEVAL``, ``_recsys_retrieval_cell``'s), the model FLOPs
 of B samples (``_recsys_model_flops``), and ``recsys_batch``, a batch of
-an arch's serve or train inputs from the synthetic logs.  The rest of
-that module lowers XLA dry-run cells for a TPU mesh and is not ported.
+an arch's serve or train inputs from the synthetic logs.
+
+GNN: ``gnn_batch``, the batch ``_gnn_cell`` declares for one of gat-cora's
+four cells, made from ``sbm_graph`` (the full graphs and the graph the
+minibatch cell samples) and ``fanout_sample`` or ``molecule_batch``, and
+``_gnn_model_flops``, that cell's count of a train step's FLOPs.
+
+The rest of that module lowers XLA dry-run cells for a TPU mesh and is
+not ported.
 """
 
 from __future__ import annotations
 
+import functools
+import time
+from typing import Optional
+
+import numpy as np
 import torch
 
 from ..core.types import resolve_device
-from ..data import recsys_ctr_batch, recsys_seq_batch
+from ..data import (CSRGraph, fanout_sample, molecule_batch, recsys_ctr_batch,
+                    recsys_seq_batch, sbm_graph)
+from ..models import gnn
 from ..models import recsys as rs
 
 _RECSYS_LOSS = {
@@ -102,3 +118,143 @@ def recsys_batch(arch_id: str, cfg, B: int, step: int = 0,
     else:
         raise KeyError(f"{arch_id} is not a recsys arch")
     return {k: torch.from_numpy(raw[k]).to(dev) for k in keys}
+
+
+# ---------------------------------------------------------------------------
+# GNN cells
+# ---------------------------------------------------------------------------
+
+def _gnn_sizes(shape) -> tuple[int, int, int]:
+    """(nodes, edges, graphs) of a train step of ``_gnn_cell`` at
+    ``shape`` on one card (the reference pads the edges to its data-
+    parallel axes, which one card does not have)."""
+    dims = shape.dims
+    if shape.kind == "molecule":
+        return (dims["batch"] * dims["n_nodes"],
+                dims["batch"] * dims["n_edges"], dims["batch"])
+    if shape.kind == "minibatch":
+        return dims["pad_nodes"], dims["pad_edges"], 0
+    return dims["n_nodes"], dims["n_edges"], 0
+
+
+def _gnn_model_flops(arch, shape_name: str) -> float:
+    """The reference's count of a train step's model FLOPs at a GNN cell,
+    3 × the forward's: E·H·d·4 (SDDMM and SpMM) + the two layers' GEMMs."""
+    cfg, shape = arch.model_cfg[shape_name], arch.shapes[shape_name]
+    n_nodes, n_edges, _ = _gnn_sizes(shape)
+    d_out = cfg.d_hidden * cfg.n_heads
+    return 3.0 * (2.0 * n_edges * d_out * 2 + 2.0 * n_nodes *
+                  cfg.d_in * d_out + 2.0 * n_nodes * d_out * cfg.n_classes)
+
+
+def sbm_avg_degree(n_nodes: int, n_edges: int) -> float:
+    """``sbm_graph``'s ``avg_degree`` whose symmetrised edge count is
+    ``n_edges`` (even): ``int(n_nodes · avg_degree)`` = n_edges / 2."""
+    return (n_edges // 2 + 0.5) / n_nodes
+
+
+@functools.lru_cache(maxsize=4)
+def host_graph(n_nodes: int, n_classes: int, d_feat: int, n_edges: int,
+               csr: Optional[str] = None) -> dict:
+    """A cell's host graph, made once a process (the newest four kept):
+    ``sbm_graph`` (seed 0) of ``n_nodes`` nodes in ``n_classes``
+    communities with ``d_feat`` features and ``n_edges`` edges after
+    symmetrisation, with ``csr`` (a device name) its ``CSRGraph`` too,
+    ordered on that device; ``graph_s`` and ``csr_s`` are the seconds
+    each took."""
+    t0 = time.perf_counter()
+    g = sbm_graph(n_nodes, n_classes, d_feat,
+                  avg_degree=sbm_avg_degree(n_nodes, n_edges), seed=0)
+    g["graph_s"] = time.perf_counter() - t0
+    if csr:
+        t0 = time.perf_counter()
+        g["csr"] = CSRGraph.from_edges(g["src"], g["dst"], n_nodes,
+                                       device=csr)
+        g["csr_s"] = time.perf_counter() - t0
+    return g
+
+
+def cell_graph(arch, shape_name: str, device="cuda") -> dict:
+    """``host_graph`` of a full-graph or minibatch cell (with its CSR for
+    the minibatch cell, ordered on ``device``)."""
+    shape = arch.shapes[shape_name]
+    dims = shape.dims
+    return host_graph(dims["n_nodes"], dims["n_classes"], dims["d_feat"],
+                      dims["n_edges"], csr=str(resolve_device(device))
+                      if shape.kind == "minibatch" else None)
+
+
+def gnn_batch(arch, shape_name: str, step: int = 0, device="cuda") -> dict:
+    """The batch of ``_gnn_cell`` at ``shape_name`` as tensors on
+    ``device``: ``x``, ``src``, ``dst``, ``labels`` and ``label_mask``;
+    for molecule also ``graph_ids``, ``node_mask`` and ``n_graphs``, with
+    labels and mask per graph.
+
+    * full graph (full_graph_sm, ogb_products): the cell's ``sbm_graph``,
+      the same every step, every node labelled (the reference's cell is
+      abstract: it names no split); ``graph_s`` is ``host_graph``'s
+      seconds for it;
+    * minibatch_lg: ``fanout_sample`` of that graph from
+      ``batch_nodes`` seed nodes drawn by the step (seed (0, step),
+      without replacement), padded to the cell's pads; the seed nodes are
+      labelled; ``n_sub_nodes`` / ``n_sub_edges`` are the sizes before
+      the pads (the sampler cuts what outgrows them: the caller checks),
+      ``sample_s`` the sampler's seconds, ``graph_s`` and ``csr_s``
+      ``host_graph``'s;
+    * molecule: ``molecule_batch`` keyed by the step.
+    """
+    dev = resolve_device(device)
+    shape = arch.shapes[shape_name]
+    dims = shape.dims
+    if shape.kind == "molecule":
+        raw = molecule_batch(dims["batch"], dims["n_nodes"], dims["n_edges"],
+                             dims["d_feat"], dims["n_classes"], step)
+        raw["label_mask"] = np.ones(dims["batch"], bool)
+        out = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+        out["n_graphs"] = dims["batch"]
+        return out
+    g = cell_graph(arch, shape_name, dev)
+    if shape.kind == "minibatch":
+        t0 = time.perf_counter()
+        seeds = np.random.default_rng((0, step)).choice(
+            dims["n_nodes"], dims["batch_nodes"], replace=False)
+        raw = fanout_sample(g["csr"], g["x"], g["labels"], seeds,
+                            dims["fanout"], seed=step,
+                            pad_nodes=dims["pad_nodes"],
+                            pad_edges=dims["pad_edges"])
+        sizes = {k: raw.pop(k) for k in ("n_sub_nodes", "n_sub_edges")}
+        out = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+        return {**out, **sizes, "sample_s": time.perf_counter() - t0,
+                "graph_s": g["graph_s"], "csr_s": g["csr_s"]}
+    return {"graph_s": g["graph_s"],
+            "x": torch.from_numpy(g["x"]).to(dev),
+            "src": torch.from_numpy(g["src"]).to(dev),
+            "dst": torch.from_numpy(g["dst"]).to(dev),
+            "labels": torch.from_numpy(g["labels"]).to(dev),
+            "label_mask": torch.ones(dims["n_nodes"], dtype=torch.bool,
+                                     device=dev)}
+
+
+def check_untruncated(batch: dict, shape) -> None:
+    """Raise where ``fanout_sample`` cut a subgraph to the cell's pads."""
+    dims = shape.dims
+    if (batch["n_sub_nodes"] > dims["pad_nodes"]
+            or batch["n_sub_edges"] > dims["pad_edges"]):
+        raise RuntimeError(
+            f"{shape.name}: the sampled subgraph has {batch['n_sub_nodes']:,} "
+            f"nodes and {batch['n_sub_edges']:,} edges, past the pads "
+            f"{dims['pad_nodes']:,} / {dims['pad_edges']:,}: the sampler "
+            "cut it")
+
+
+def gnn_loss(cfg, edge_chunk=None):
+    """``_gnn_cell``'s loss of (params, batch) at ``cfg``, the edges in
+    chunks of ``edge_chunk`` (``models.gnn.plan_edge_chunk``)."""
+    def loss(params, b):
+        return gnn.loss_fn(cfg, params, b["x"], b["src"], b["dst"],
+                           b["labels"], b["label_mask"],
+                           graph_ids=b.get("graph_ids"),
+                           n_graphs=b.get("n_graphs", 0),
+                           node_mask=b.get("node_mask"),
+                           edge_chunk=edge_chunk)
+    return loss

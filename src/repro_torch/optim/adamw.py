@@ -94,18 +94,20 @@ def tree_map(fn: Callable, tree, *rest):
 def tree_unflatten(tree, leaves: list):
     """``tree``'s structure with its leaves, in ``tree_leaves``'s order,
     replaced by ``leaves``."""
-    it = iter(leaves)
+    return _unflatten_from(tree, iter(leaves))
 
-    def walk(node):
-        if isinstance(node, dict):
-            new = {k: walk(node[k]) for k in sorted(node)}
-            return {k: new[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            out = [walk(v) for v in node]
-            return tuple(out) if isinstance(node, tuple) else out
-        return None if node is None else next(it)
 
-    return walk(tree)
+def _unflatten_from(node, it):
+    # a module function, not a closure that calls itself: such a closure
+    # is a reference cycle, which would keep ``leaves`` (a step's
+    # gradients, say) alive until the garbage collector runs
+    if isinstance(node, dict):
+        new = {k: _unflatten_from(node[k], it) for k in sorted(node)}
+        return {k: new[k] for k in node}
+    if isinstance(node, (list, tuple)):
+        out = [_unflatten_from(v, it) for v in node]
+        return tuple(out) if isinstance(node, tuple) else out
+    return None if node is None else next(it)
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -134,28 +136,39 @@ def adamw_update(grads, state: dict, params, cfg: OptConfig):
     """Returns (new_params, new_state, {"lr", "grad_norm"}).
 
     Clipping scales each gradient in f32, as the reference's bf16 gradient
-    times an f32 scale is promoted to f32 there."""
+    times an f32 scale is promoted to f32 there.  The reference's
+    arithmetic, each operation on the same operands in the same order, one
+    leaf at a time, its temporaries updated in place and dropped as soon as
+    they are used: a leaf's update holds about four more copies of it (a
+    900 M-entry embedding table's update at train_batch would otherwise
+    hold a clipped copy of every gradient and eight of the table)."""
     step = state["step"] + 1
     lr = _lr_at(cfg, step)
     gnorm = global_norm(grads)
+    scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
-        grads = tree_map(lambda g: g.float() * scale, grads)
 
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - _f32(b1, step.device) ** step.float()
     bc2 = 1 - _f32(b2, step.device) ** step.float()
 
     def upd(p, g, m, v):
-        g32 = g.float()
-        m32 = b1 * m.float() + (1 - b1) * g32
-        v32 = b2 * v.float() + (1 - b2) * g32 * g32
-        mh = m32 / bc1
-        vh = v32 / bc2
-        delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.float()
-        new_p = (p.float() - lr * delta).to(p.dtype)
-        return new_p, m32.to(cfg.state_dtype), v32.to(cfg.state_dtype)
+        g32 = g.float() if scale is None else g.float() * scale
+        m32 = (b1 * m.float()).add_((1 - b1) * g32)
+        v32 = ((1 - b2) * g32).mul_(g32)
+        del g32
+        v32 = (b2 * v.float()).add_(v32)
+        m_out, v_out = m32.to(cfg.state_dtype), v32.to(cfg.state_dtype)
+        delta = m32.div(bc1)                       # m̂
+        del m32
+        denom = v32.div(bc2).sqrt_().add_(cfg.eps)  # √v̂ + eps
+        del v32
+        delta = delta.div_(denom).add_(cfg.weight_decay * p.float())
+        del denom
+        new_p = p.float().sub(delta.mul_(lr)).to(p.dtype)
+        return new_p, m_out, v_out
 
     out = [upd(*leaves) for leaves in zip(
         tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),

@@ -646,9 +646,10 @@ class ShardedResilientAnnServer(ResilientAnnServer):
         else:
             # one child per logical shard under a fanout parent (itself a
             # child of the batch's device_execute span).  The single
-            # controller searches the slots one after another, so each
-            # live shard's child spans its own slot's search; a dead
-            # shard's child is empty and carries live=False
+            # controller searches every live slot in one lock-step loop,
+            # so each live shard's child spans that one search (the
+            # children nest, opened in slot order); a dead shard's child
+            # is empty and carries live=False
             fanout = tr.start_span("serve.shard_fanout", merge=merge)
             R = self.registry.n_replicas
             for s in self.registry.dead_shards():

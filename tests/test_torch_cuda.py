@@ -43,7 +43,13 @@ magnitude), and a bf16 MoE prefill gives the same logits twice.  The
 recsys archs' smoke configs on the card agree with the port on the CPU
 (f32 to rtol 1e-5 / atol 1e-6, retrieval ids identical with their exact
 ties in order), and MIPS search at MIND's d + 1 = 65 gives its plain
-path's ids.
+path's ids.  The sharded single controller's lock-step search equals its
+slots searched one at a time, bit for bit.  The GAT in edge chunks on the
+card agrees with the edge list in one piece (loss and gradients to 1e-5,
+a gradient leaf's of its own norm or of a floor), ``CSRGraph.from_edges``
+sorted on the card gives numpy's stable order,
+and a chunked GAT step, like a recsys arch's step, is bitwise repeatable
+under ``torch.use_deterministic_algorithms``.
 """
 
 import dataclasses
@@ -749,6 +755,28 @@ def test_sharded_search_on_card_matches_plain_path(cuda, card_sharded):
 
 
 @pytest.mark.cuda
+def test_sharded_lockstep_on_card_equals_one_slot_at_a_time(cuda,
+                                                            card_sharded):
+    """The single controller's lock-step search over every live slot's
+    rows on the card gives each slot's list from its own search
+    (``_local_search``), ids and distances to the bit, with a slot left
+    out."""
+    from repro_torch.core.distributed import _local_search, _lockstep_search
+
+    _, _, sidx = card_sharded
+    p = SearchParams(k=10, l0=10, l_max=64, alpha=1.2, adaptive=True,
+                     max_hops=512)
+    q = torch.as_tensor(clustered_vectors(64, 32, 16, seed=1), device=cuda)
+    for live in ([0, 1, 2, 3], [0, 2, 3]):
+        got = _lockstep_search(sidx, live, q, p, quantized=True)
+        for slot, (ids, dists) in zip(live, got):
+            want = _local_search(sidx.slots[slot], q, p, quantized=True)
+            assert torch.equal(ids, want.ids)
+            assert torch.equal(dists.view(torch.int32),
+                               want.dists.view(torch.int32))
+
+
+@pytest.mark.cuda
 def test_repaired_slot_on_card_is_the_original(cuda, tmp_path):
     """The store's rebuild on the card is bitwise the slot the sharded build
     made, and the repair controller installs it (the reference's
@@ -1331,3 +1359,156 @@ def test_mips_search_at_d65_on_card_matches_plain(cuda):
     for kernel in ("gather_l2_blocks", "batched_l2_blocks"):
         assert built[kernel] == 0 and ran[kernel] == 0
     assert (res.ids == plain.ids).all(1).float().mean().item() >= 0.99
+
+
+# the floor of a GAT gradient leaf's norm in the chunked-against-one-piece
+# card test, as a share of the whole gradient's norm.  The same per-edge
+# values added by atomics in another grouping leave an error that does not
+# shrink with the leaf: over 14 runs of each chunk size on an H100, layer
+# 0's bias (0.05 of the whole norm) read up to 2.1e-6 of the whole norm,
+# its w (0.785) 2.3e-6, the attention vectors (0.002-0.011) 4.3e-7
+GAT_LEAF_FLOOR = 0.5
+
+
+def _gat_mid(device, seed=0):
+    """A mid-size graph for the GAT on the card: 20,000 nodes, 400,000
+    edges, ogb_products' 100 features and 47 classes."""
+    from repro_torch.launch import steps
+
+    g = port_data.sbm_graph(20_000, 47, 100,
+                            avg_degree=steps.sbm_avg_degree(20_000, 400_000),
+                            seed=seed)
+    b = {k: torch.from_numpy(g[k]).to(device)
+         for k in ("x", "src", "dst", "labels")}
+    b["label_mask"] = torch.ones(20_000, dtype=torch.bool, device=device)
+    return b
+
+
+def _gat_grads(cfg, params, batch, chunk):
+    from repro_torch.launch import steps
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    loss, _ = steps.gnn_loss(cfg, chunk)(tree_unflatten(params, leaves),
+                                         batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(leaves, grads)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1 << 12, 100_003])
+def test_gat_edge_chunks_on_card_match_one_piece(cuda, chunk):
+    """ogb_products' GAT on a mid-size graph on the card: the loss and
+    every gradient leaf in edge chunks against the edge list in one piece
+    (the loss to rtol 1e-5; each leaf's ‖Δ‖ to 1e-5 of its own norm, or of
+    ``GAT_LEAF_FLOOR`` of the whole gradient's norm where that is larger,
+    so a small leaf is held to half the bound a whole-norm test gives it),
+    and the one-piece loss against the port on the CPU (rtol 1e-5)."""
+    from repro_torch.models import gnn
+    from repro_torch.launch import steps
+
+    cfg = get_arch("gat-cora").model_cfg["ogb_products"]
+    params = gnn.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                      device=cuda)
+    batch = _gat_mid(cuda)
+    want_loss, want = _gat_grads(cfg, params, batch, None)
+    got_loss, got = _gat_grads(cfg, params, batch, chunk)
+    torch.testing.assert_close(got_loss, want_loss, rtol=1e-5, atol=0)
+    total = float(torch.stack([w.norm() for w in want]).norm())
+    read = [(float(w.norm()), float((a - w).norm()))
+            for a, w in zip(got, want)]
+    for i, (own, err) in enumerate(read):
+        print(f"chunk {chunk} leaf {i}: ‖leaf‖/‖total‖ {own / total:.3g}, "
+              f"‖Δ‖/‖total‖ {err / total:.3g}")
+    assert all(err <= 1e-5 * max(own, GAT_LEAF_FLOOR * total)
+               for own, err in read)
+    host = {k: v.cpu() for k, v in batch.items()}
+    from repro_torch.optim.adamw import tree_map
+    cpu_loss, _ = steps.gnn_loss(cfg)(tree_map(lambda t: t.cpu(), params),
+                                      host)
+    torch.testing.assert_close(want_loss.cpu(), cpu_loss, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_csr_from_edges_on_card_is_the_hosts(cuda):
+    """``CSRGraph.from_edges`` sorted on the card gives numpy's stable
+    order and row pointers, bit for bit, on a graph of 4 M edges."""
+    from repro_torch.data.sampler import CSRGraph
+
+    g = port_data.sbm_graph(200_000, 41, 8, avg_degree=10.0, seed=3)
+    got = CSRGraph.from_edges(g["src"], g["dst"], 200_000, device=cuda)
+    order = np.argsort(g["dst"], kind="stable")
+    np.testing.assert_array_equal(got.indices, g["src"][order])
+    np.testing.assert_array_equal(
+        got.indptr, np.searchsorted(g["dst"][order], np.arange(200_001)))
+    assert got.indices.dtype == np.int32 and got.indptr.dtype == np.int64
+
+
+@pytest.mark.cuda
+def test_gat_train_step_on_card_is_deterministic(cuda):
+    """Under ``torch.use_deterministic_algorithms`` two chunked GAT train
+    steps from the same state give the same loss and state, bit for bit
+    (``index_add`` and ``index_select``'s backward take their
+    deterministic kernels)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import gnn
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import TrainState, make_train_step
+
+    cfg = get_arch("gat-cora").model_cfg["ogb_products"]
+    batch = _gat_mid(cuda)
+    opt = OptConfig(total_steps=1000)
+    step = make_train_step(steps.gnn_loss(cfg, 1 << 15), opt)
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = []
+        for _ in range(2):
+            params = gnn.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                              device=cuda)
+            state, m = step(TrainState.create(params, opt), batch)
+            runs.append((m["loss"], tree_leaves([state.params,
+                                                 state.opt_state])))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", RECSYS_ARCHS)
+def test_recsys_train_step_on_card_is_deterministic(cuda, arch_id):
+    """Each recsys arch's smoke config: two train steps (AdamW, the
+    reference cell's OptConfig) from the same state on the card give the
+    same loss and state bit for bit under
+    ``torch.use_deterministic_algorithms``, and the loss is the CPU's to
+    rtol 1e-5."""
+    from repro_torch.launch import steps
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train import TrainState, make_train_step
+
+    cfg = get_arch(arch_id).smoke_cfg
+    host = steps._RECSYS_INIT[arch_id](cfg, torch.Generator().manual_seed(0),
+                                       device="cpu")
+    batch = steps.recsys_batch(arch_id, cfg, 256, device="cpu")
+    opt = OptConfig(total_steps=100000)
+    step = make_train_step(lambda p, b: steps._RECSYS_LOSS[arch_id](cfg, p, b),
+                           opt)
+    _, cpu_m = step(TrainState.create(host, opt), batch)
+    card_batch = {k: v.to(cuda) for k, v in batch.items()}
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = []
+        for _ in range(2):
+            state, m = step(TrainState.create(
+                tree_map(lambda t: t.to(cuda), host), opt), card_batch)
+            runs.append((m["loss"], tree_leaves([state.params,
+                                                 state.opt_state])))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    torch.testing.assert_close(runs[0][0].cpu(), cpu_m["loss"], rtol=1e-5,
+                               atol=0)

@@ -143,6 +143,78 @@ def test_sharded_search_matches_reference(ref_built, data, layout, quantized,
         np.testing.assert_array_equal(mine_i, np.asarray(want_i))
 
 
+@pytest.mark.parametrize("backend", ["auto", "jnp"])
+@pytest.mark.parametrize("quantized", [False, True], ids=["graph", "emqg"])
+def test_lockstep_slots_equal_one_at_a_time(ref_built, data, quantized,
+                                            backend):
+    """The single controller's lock-step search over every participating
+    slot's rows at once gives, bit for bit, each slot's list from its own
+    search (``_local_search``), with slots left out and with adaptive
+    widths, W = 2 and uneven hop counts across slots; the stack is made
+    once an index, and ``around`` is entered for each live slot in
+    order."""
+    import contextlib
+
+    from repro_torch.core.distributed import _local_search, _lockstep_search
+
+    _, port, R = ref_built[("replicated", quantized)]
+    _, Q = data
+    q = torch.as_tensor(Q)
+    for kw in (KW, dict(KW, adaptive=True, alpha=1.2, l_max=48,
+                        beam_width=2)):
+        params = SearchParams(**kw)
+        for live in (list(range(8)), [0, 2, 3, 5, 6, 7], [6]):
+            got = _lockstep_search(port, live, q, params, quantized, backend)
+            for slot, (ids, dists) in zip(live, got):
+                want = _local_search(port.slots[slot], q, params, quantized,
+                                     backend)
+                assert torch.equal(ids, want.ids)
+                assert torch.equal(dists.view(torch.int32),
+                                   want.dists.view(torch.int32))
+    stack = port.__dict__["_stack"]
+    make_sharded_search("all_gather", quantized, backend)(port, Q, params)
+    assert port.__dict__["_stack"] is stack
+    seen = []
+
+    def around(slot):
+        seen.append(slot)
+        return contextlib.nullcontext()
+
+    valid = [True, False, True, True, False, True, True, True]
+    make_sharded_search("ring", quantized, backend)(port, Q, params,
+                                                   valid=valid, around=around)
+    assert seen == [i for i in range(8) if valid[i]]
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["graph", "emqg"])
+def test_lockstep_bitsets_are_a_slot_wide(ref_built, data, quantized,
+                                          monkeypatch):
+    """The lock-step search's visited bitsets cover one slot's rows a
+    query row, S·B rows of ⌈N_slot/32⌉ words, not the stack's S·N_slot:
+    their memory grows with S, not S²."""
+    import importlib
+
+    from repro_torch.core.distributed import _graph, _lockstep_search
+
+    port_search = importlib.import_module("repro_torch.core.search")
+    port_probing = importlib.import_module("repro_torch.core.probing")
+
+    _, port, _ = ref_built[("replicated", quantized)]
+    _, Q = data
+    made, real = [], port_search.bitset_make
+
+    def spy(batch, n, device=None):
+        made.append((batch, n))
+        return real(batch, n, device)
+
+    monkeypatch.setattr(port_search, "bitset_make", spy)
+    monkeypatch.setattr(port_probing, "bitset_make", spy)
+    live = [0, 2, 3, 7]
+    _lockstep_search(port, live, torch.as_tensor(Q), SearchParams(**KW),
+                     quantized)
+    assert made == [(len(live) * len(Q), _graph(port.slots[0]).n)]
+
+
 def test_carried_slots_equal_per_slot_copies(ref_built):
     """``sharded_from_numpy`` gives slot s the arrays of the reference's
     slot s, bit for bit, and the reference's offsets, sizes and n_total."""
@@ -453,10 +525,11 @@ def test_shard_death_plan_and_health_deadline(data):
 @pytest.mark.faults
 def test_shard_spans_time_each_slot_search(data):
     """The fanout span holds one ``shard`` child per logical shard: a live
-    shard's child spans its own slot's search (the single controller runs
-    them one after another, so the children follow each other without
-    overlap, inside the fanout), a dead shard's child is empty and says
-    so."""
+    shard's child spans the search its slot took part in (the single
+    controller searches every live slot in one lock-step loop, so the
+    live children are opened in slot order, all cover that one search and
+    close in reverse order, inside the fanout), a dead shard's child is
+    empty and says so."""
     X, Q = data
     sidx = build_replicated(X[:512], 4, 2, BuildParams(**BP), device="cpu")
     tr = Tracer()
@@ -476,8 +549,9 @@ def test_shard_spans_time_each_slot_search(data):
     assert [(c.attrs["shard"], c.attrs["replica"]) for c in live] == \
         [(0, 0), (1, 1), (3, 0)]
     assert all(c.duration_s > 0 for c in live)
-    assert all(a.end <= b.start for a, b in zip(live, live[1:]))
-    assert fanout.start <= live[0].start and live[-1].end <= fanout.end
+    assert all(a.start <= b.start and b.end <= a.end
+               for a, b in zip(live, live[1:]))
+    assert fanout.start <= live[0].start and live[0].end <= fanout.end
     assert fanout.attrs["coverage"] == 0.75
 
 

@@ -15,6 +15,7 @@ retrieval ids identical (exact ties lowest index first, as
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +40,7 @@ from repro_torch.launch import train as launch_train
 from repro_torch.models import common
 from repro_torch.models import recsys as rs
 from repro_torch.optim import OptConfig
+from repro_torch.optim.adamw import tree_leaves
 from repro_torch.train import TrainState, make_train_step
 
 torch.set_num_threads(1)
@@ -482,7 +484,23 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("arch_id", ARCHS)
-def test_launch_train_refuses_a_recsys_arch(arch_id):
-    with pytest.raises(SystemExit, match=f"{arch_id} is a recsys arch.*"
-                       "later slice"):
-        launch_train.main(["--arch", arch_id, "--smoke", "--device", "cpu"])
+def test_launch_train_refuses_a_recsys_arch(arch_id, tmp_path, capsys):
+    """``launch.train`` refuses a recsys arch's full config off the card;
+    ``--smoke --device cpu`` trains it for 12 steps, leaving its checkpoint
+    at step 10, and the same run again resumes from it to a state equal
+    bit for bit to an uninterrupted run's."""
+    with pytest.raises(SystemExit, match="on the card"):
+        launch_train.main(["--arch", arch_id, "--device", "cpu"])
+    d = str(tmp_path / "a")
+    assert launch_train.main(["--arch", arch_id, "--smoke", "--steps", "12",
+                              "--ckpt-dir", d, "--device", "cpu"]) == 0
+    assert os.listdir(d) == ["step_000000010"]
+    arch = get_arch(arch_id)
+    resumed = launch_train.recsys_loop(arch, 12, d, smoke=True, device="cpu")
+    assert "[train] resumed from step 10" in capsys.readouterr().out
+    whole = launch_train.recsys_loop(arch, 12, str(tmp_path / "b"),
+                                     smoke=True, device="cpu")
+    assert int(resumed.step) == int(whole.step) == 12
+    leaves = lambda s: tree_leaves([s.params, s.opt_state, s.step])  # noqa
+    for a, w in zip(leaves(resumed), leaves(whole)):
+        assert torch.equal(a, w)
