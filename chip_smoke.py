@@ -7,7 +7,8 @@
 The serve phase's n is cut from the SIFT1M target of 1,000,000 to
 500,000: at 1M the build alone took 740.6 s on an H100 80GB HBM3 at
 700 W and the whole run 808 s, over half of the 1200 s a smoke run may
-take.  The kernel phase always uses a 1M base (at d = 65 the same 512
+take (at the build block of 1,024; the builds here take blocks of 16,384
+rows, ``BUILD_PARAMS``).  The kernel phase always uses a 1M base (at d = 65 the same 512
 MB: 1,969,230 rows).  The exact build (n = 4,000), the five baseline
 builders (n = 20,000 each), the MIPS build (n = 50,000) and MIND's index
 (20,000 item rows, d = 64) are smaller still: Algorithm 2 is O(n²) (the
@@ -36,20 +37,27 @@ non-zero and prints no result line):
                ``fused_estimate`` and ``batched_l2`` against their plain
                PyTorch versions on the same card tensors, at the shapes each
                path below gives them (base 1M × 128; ids [128, 1] in the
-               drain, [1024, 24] in the build's searches and, over a base
-               1M × 129, in the MIPS build's, [128, 24] in the exact
+               drain, [16384, 24] in the build's searches, [1024, 24] in
+               the live phase's inserts and, over a base 1M × 129, in the
+               MIPS build's, [128, 24] in the exact
                searches; over a base 1,969,230 × 65 (the same bytes), ids
-               [1024, 24] in the recsys phase's MIND build and [64, 1] in
+               [16384, 24] in the recsys phase's MIND build and [64, 1] in
                its retrieval; codes [128, 24, 4] in the probe phase; the
                estimate of ids [128, 24] over a 1M-row code table, W = 4 in
                the drain and W = 5 in MIPS, and of ids [64, 24], W = 3 at
-               d = 65 in MIND's retrieval; rows [1024, 25, 128] in the
+               d = 65 in MIND's retrieval; rows [16384, 25, 128] in the
                build's neighbor selection, [1024, 24, 128] in the live
-               phase's inserts, [1024, 25, 129] in the MIPS
-               build's, [1024, 25, 65] in MIND's and [524, 128, 128] in
+               phase's inserts, [16384, 25, 129] in the MIPS
+               build's, [16384, 25, 65] in MIND's and [524, 128, 128] in
                the exact build's; and W =
                4's [128, 96] and the JAX package's
-               benchmark shape [64, 64, 128], on no path), then timed with
+               benchmark shape [64, 64, 128], on no path; and at sift1m's
+               M = 64: ids [16384, 64] in its build's searches, rows
+               [16384, 64, 128] in its refinement's selector and [16384,
+               65, 128] in its degree alignment's (the largest the
+               alignment's batch, the nodes short of M, can be), the
+               estimate of ids [256, 64] and [4096, 64], W = 4, in its two
+               serve shapes), then timed with
                CUDA events over input sets that hold three times the card's
                L2 (``torch.cdist`` timed beside ``batched_l2`` as its
                library yardstick; the plain version over the first
@@ -81,7 +89,7 @@ non-zero and prints no result line):
    filtered   ``theorem4_delta_prime`` (share found, mean δ′); and
                ``filtered_search`` with a seeded 10% mask;
 6. profile  — ``torch.profiler`` over one served batch of 128 queries
-               with max_hops = 128 and over one 1024-node candidate
+               with max_hops = 128 and over one 16,384-node candidate
                search of the build, on the same index, device activity
                alone; one JSON line each (device busy share, kernel
                launches and launches per hop, ms per hop), and the operator
@@ -149,7 +157,12 @@ non-zero and prints no result line):
                after another, so its equality checks the lock-step too;
 10. exact   — ``build_exact`` (Algorithm 2) at n = 4,000, then Theorem 1:
    build      a greedy W = 1 search from the medoid for every corpus point
-               returns that point at distance 0;
+               returns that point at distance 0; then the (1/δ) bound at
+               beam width 4: 128 off-corpus queries through ``search``,
+               ``faithful_prune``, ``probing_search`` and ``ags_search`` on
+               ``from_graph`` of that build, with the kernels, every rank
+               within 1/δ of the exact k-NN's (``repro_torch.testing``'s
+               numpy oracle), the served distances the exact ones;
 11. baselines — each of ``baselines.BUILDERS`` at n = 20,000: degrees at
                most M, ≥ 99% of nodes reachable from the medoid (the
                reference's repair can leave a few cut off; ``knn`` has no
@@ -161,6 +174,23 @@ non-zero and prints no result line):
                and ``mips_search`` for 256 queries (``gather_l2_ragged`` in
                its exact tier): recall@10 against brute-force inner
                product, ids against the plain path;
+12b. sift1m — the paper's own configuration from the port's registry
+               (``configs/sift1m.py``: M 64, L 1000, t 64, I 3,
+               degree-aligned; l_max 512, α 1.2, max_hops 4096) with n cut
+               to 16,384 of its 1,000,000 and ``block`` raised to 16,384
+               (both printed): a one-shard δ-EMQG built on the card by
+               ``build_sharded`` (paths ``sift1m_build``, the refinement,
+               and ``sift1m_align``, the degree alignment), its build
+               seconds per phase, the share of its searches cut at 1,024
+               hops, the nodes aligned, degrees and unreachable nodes;
+               ``serve_online`` (256) and ``serve_batch`` (4,096), each one
+               call of ``launch.steps.ann_serve`` (paths
+               ``sift1m_serve_online``, ``sift1m_serve_batch``): seconds,
+               QPS, hops, recall@10, model FLOP/s, served distances the
+               exact ones, serve_online's ids those of the plain path; and
+               the exact ``search`` on the same graph with the same
+               parameters (the graph's recall without the RaBitQ
+               estimate);
 13. recsys  — FM, DCN-v2, DIEN and MIND at their published widths in f32
                (weights from a seeded generator, one arch's tables on the
                card at a time: 3.60, 3.50, 0.30 and 2.15 GB): each served
@@ -289,13 +319,20 @@ non-zero and prints no result line):
                against a prefill at a capacity that drops nothing, with
                the two cache controls; greedy ``generate`` for 8 × (128 +
                32), its first token among the drop-free prefill's top
-               logits; a ``[moe-summary]`` line.
+               logits; a ``[moe-summary]`` line;
+19. examples — the four port examples (``examples/torch_*.py``) in this
+               process through their ``main(argv)``, at their own sizes:
+               the quickstart, vector serving (and 4 shards on the card),
+               the 46M-parameter LM for 40 steps (cut from 300) with a
+               checkpoint every 20, then resumed to 60, and MIND trained and
+               retrieved through the δ-EMQG index; each finishes and prints its
+               result lines (``[examples]`` lines).
 
 Every kernel's launch count is set to 0 just before the path that runs it
 and read just after; a kernel that path never launched fails the run.  The
 ``kernels`` line reports each kernel at the shape of the path whose launch
-count it prints (``gather_l2_tiled`` at five paths, ``batched_l2`` at
-five, ``fused_estimate`` at two, ``flash_attention`` at three:
+count it prints (``gather_l2_tiled`` at seven paths, ``batched_l2`` at
+seven, ``fused_estimate`` at four, ``flash_attention`` at three:
 ``lm_prefill``, ``moe_prefill`` and ``train``, and
 ``flash_attention_bwd`` at ``train``; ``kernel`` names the kernel behind
 the entry point, whose launches
@@ -325,8 +362,12 @@ FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 BF16_TC_FLOP_PER_S = 989e12    # H100 SXM bf16 on the tensor cores, dense
 SERVE_PARAMS = dict(k=10, l0=10, l_max=256, alpha=1.2, adaptive=True,
                     max_hops=2048)
-BUILD_PARAMS = dict(max_degree=24, beam_width=64, t=32, iters=2, block=1024,
-                    align_degree=True)
+# the serve CLI's BuildParams, but for the block: raised from its 1,024 to
+# cut the build's host hops (each block's searches read the graph frozen at
+# the start of its iteration, so the block does not change the graph:
+# tests/test_torch_configs.py); the live phase keeps LIVE_INSERT
+BUILD_PARAMS = dict(max_degree=24, beam_width=64, t=32, iters=2,
+                    block=16_384, align_degree=True)
 MIN_AGREE = 0.99
 PROFILE_HOPS = 128             # max_hops of the batch under the profiler
 TARGET_N = 1_000_000           # SIFT1M's shape
@@ -340,6 +381,21 @@ BASELINE_N = 20_000            # five builders: cut to fit the limit
 MIN_REACH = {"knn": 0.0}
 MIN_REACH_REPAIRED = 0.99
 MIPS_N = 50_000                # a second δ-EMQG build: cut to fit the limit
+SIFT_ARCH = "sift1m"           # the paper's own configuration (configs/sift1m.py)
+# n cut from the config's 1,000,000 to fit the run's time: at 32,768 the
+# sift1m and examples phases with their kernel rows took 140 s of the 120 s
+# they may add to the run (PERF.md §5)
+SIFT_N = 16_384
+SIFT_BLOCK = 16_384            # BuildParams.block raised from 512: fewer host hops
+SIFT_SEEDS = (9, 10)           # corpus, queries
+BOUND_QUERIES = 128            # off-corpus queries of the exact build's W = 4 bound
+BOUND_ENGINES = ("beam", "faithful", "probing", "ags")
+# the four port examples, each in-process through its main(argv); the two
+# trainers cut in steps (train_lm: 300 → 40, then resumed to 60)
+EXAMPLE_RUNS = (("quickstart", []), ("vector_serve", []),
+                ("train_lm", ["--steps", "40", "--ckpt-every", "20"]),
+                ("train_lm", ["--steps", "60", "--ckpt-every", "20"]),
+                ("recsys_retrieval", []))
 LM_ARCH = "smollm-135m"
 LM_CHECK_SEQ = 4_096           # the prefill with the kernel vs plain attention
 LM_GEN = dict(batch=8, prompt=128, max_new=32, max_seq=256)
@@ -588,16 +644,20 @@ def check_misses_l2(torch, name: str, footprint: int) -> None:
 # (kernel, B, M, d, the path that gives it this shape)
 GATHER_CASES = (
     ("gather_l2_tiled", 128, 1, 128, "drain"),       # start and probes: [B, W]
-    ("gather_l2_tiled", 1024, 24, 128, "build"),     # searches: [block, W·M]
+    ("gather_l2_tiled", BUILD_PARAMS["block"], 24, 128, "build"),  # [block, W·M]
+    # the live inserts' searches, in blocks of LIVE_INSERT rows
+    ("gather_l2_tiled", LIVE_INSERT, 24, 128, "live"),
     ("gather_l2_tiled", 128, 24, 128, "exact_kernel_tiled"),
     ("gather_l2_tiled", 128, 96, 128, "W=4, no path here"),
     ("gather_l2", 128, 24, 128, "exact_kernel"),
     ("gather_l2", 128, 96, 128, "W=4, no path here"),
-    ("gather_l2_tiled", 1024, 24, 129, "mips_build"),   # MIPS's ragged d + 1
+    ("gather_l2_tiled", BUILD_PARAMS["block"], 24, 129, "mips_build"),  # d + 1
     # MIND's d + 1 = 65 through the index: the build's searches and the
     # retrieval's exact tier (64 interest queries, beam width 1)
-    ("gather_l2_tiled", 1024, 24, 65, "recsys_build"),
+    ("gather_l2_tiled", BUILD_PARAMS["block"], 24, 65, "recsys_build"),
     ("gather_l2_tiled", 64, 1, 65, "recsys_retrieval"),
+    # sift1m's build searches at M = 64 over its block (beam width 1)
+    ("gather_l2_tiled", SIFT_BLOCK, 64, 128, "sift1m_build"),
 )
 # (B, K = W·M, path) of the bitdot launch: the expand branch's estimates
 BITDOT_CASES = ((128, 24, "probe"), (128, 96, "W=4, no path here"))
@@ -605,7 +665,10 @@ BITDOT_CASES = ((128, 24, "probe"), (128, 96, "W=4, no path here"))
 # expand branch's estimates at d = 128, MIPS's augmented d + 1 = 129, and
 # MIND's d + 1 = 65 (three code words) for its 64 interest queries
 ESTIMATE_CASES = ((128, 24, 4, 128, "drain"), (128, 24, 5, 129, "mips"),
-                  (64, 24, 3, 65, "recsys_retrieval"))
+                  (64, 24, 3, 65, "recsys_retrieval"),
+                  # sift1m's two serve shapes at M = 64
+                  (256, 64, 4, 128, "sift1m_serve_online"),
+                  (4096, 64, 4, 128, "sift1m_serve_batch"))
 ESTIMATE_TABLES = 8            # distinct 1M-row code tables the timing cycles
 # input sets the plain versions are timed over (the kernels over every
 # set): the plain time is a column, no yardstick, and at the small shapes
@@ -615,6 +678,7 @@ PLAIN_SETS = 64
 # the kernels line: (kernel, path) of each row, which reports the kernel at
 # that path's shape and its launches there
 REPORTED = (("gather_l2_tiled", "drain"), ("gather_l2_tiled", "build"),
+            ("gather_l2_tiled", "live"),
             ("gather_l2_tiled", "mips_build"), ("gather_l2", "exact_kernel"),
             ("bitdot", "probe"), ("fused_estimate", "drain"),
             ("batched_l2", "build"), ("batched_l2", "live"),
@@ -623,6 +687,10 @@ REPORTED = (("gather_l2_tiled", "drain"), ("gather_l2_tiled", "build"),
             ("gather_l2_tiled", "recsys_retrieval"),
             ("batched_l2", "recsys_build"),
             ("fused_estimate", "recsys_retrieval"),
+            ("gather_l2_tiled", "sift1m_build"),
+            ("batched_l2", "sift1m_build"), ("batched_l2", "sift1m_align"),
+            ("fused_estimate", "sift1m_serve_online"),
+            ("fused_estimate", "sift1m_serve_batch"),
             ("flash_attention", "lm_prefill"),
             ("flash_attention", "moe_prefill"), ("flash_attention", "train"),
             ("flash_attention_bwd", "train"))
@@ -634,17 +702,23 @@ def batched_cases() -> tuple:
     MIPS's ragged d + 1 = 129 and at MIND's d + 1 = 65 (the recsys phase's
     index), in the live phase's insert (max_keep = M),
     the exact build's [block, max_degree] at
-    EXACT_N (``build_exact``'s own defaults), and the JAX package's
-    benchmark shape."""
+    EXACT_N (``build_exact``'s own defaults), sift1m's [block, M] and
+    [block, M + 1] at M = 64, and the JAX package's benchmark shape."""
+    from repro_torch.configs import get_arch
     from repro_torch.core.build_exact import _default_block, _default_max_degree
 
     kept = (BUILD_PARAMS["block"], BUILD_PARAMS["max_degree"] + 1)
     # insert's selection keeps M of its LIVE_INSERT new rows
     live = (LIVE_INSERT, BUILD_PARAMS["max_degree"], 128, "live")
+    M = get_arch(SIFT_ARCH).model_cfg["build"].max_degree
     return ((*kept, 128, "build"), live, (*kept, 129, "mips_build"),
             (*kept, 65, "recsys_build"),
             (_default_block(EXACT_N, 128), _default_max_degree(EXACT_N), 128,
              "exact_build"),
+            # sift1m's selector: M kept in the refinement, M + 1 in the
+            # degree alignment's search for t (the same build's launches)
+            (SIFT_BLOCK, M, 128, "sift1m_build"),
+            (SIFT_BLOCK, M + 1, 128, "sift1m_align"),
             (64, 64, 128, "reference benchmark, no path"))
 
 
@@ -1287,7 +1361,8 @@ def ags_certify_filtered_phase(torch, idx, vq, card: str,
 
 def exact_build_phase(torch, card: str, counts: dict) -> None:
     """Algorithm 2 on the card, then Theorem 1: a W = 1 greedy search from
-    the medoid for every corpus point returns that point at distance 0."""
+    the medoid for every corpus point returns that point at distance 0;
+    then the (1/δ) bound at W = 4 (``delta_bound_w4``)."""
     import warnings
 
     from repro_torch.core import build_exact, greedy_search
@@ -1315,6 +1390,56 @@ def exact_build_phase(torch, card: str, counts: dict) -> None:
           f"{int((hit & zero).sum())}/{EXACT_N} points found at distance 0; "
           f"launches {json.dumps(counts['exact_build'])} ({card})")
     check(bool((hit & zero).all()), "Theorem 1 fails on the exact build")
+    delta_bound_w4(torch, g, base, card, counts)
+
+
+def delta_bound_w4(torch, g, base, card: str, counts: dict) -> None:
+    """What ``tests/test_torch_search.py::test_delta_bound_w4`` checks on
+    the CPU, on the card: ``BOUND_QUERIES`` off-corpus queries through
+    each of ``BOUND_ENGINES`` at beam width 4 with the kernels, on
+    ``from_graph`` of the exact build (δ = 0.05): valid, distinct,
+    ascending ids, served distances the exact ones (rtol 1e-4), and every
+    rank within (1/δ) of the exact k-NN's (``repro_torch.testing``'s
+    oracle, plain numpy in float64)."""
+    from repro_torch.core import (SearchParams, ags_search, from_graph,
+                                  probing_search, search)
+    from repro_torch.data import clustered_vectors
+    from repro_torch.testing import check_delta_bound, exact_knn
+
+    idx = from_graph(g)
+    q_h = clustered_vectors(BOUND_QUERIES, 128, 48, seed=11)
+    q = torch.as_tensor(q_h, device="cuda")
+    base_h = base.cpu().numpy()
+    p = SearchParams(k=10, l0=10, l_max=64, alpha=1.2, adaptive=True,
+                     max_hops=1024, beam_width=4)
+    oracle_d = exact_knn(base_h, q_h, p.k)[0]
+    runs = {"beam": lambda: search(g, q, p),
+            "faithful": lambda: search(g, q, p, faithful_prune=True),
+            "probing": lambda: probing_search(idx, q, p),
+            "ags": lambda: ags_search(idx, q, p)}
+    worst = {}
+    for engine in BOUND_ENGINES:
+        reset_counts()
+        res = runs[engine]()
+        torch.cuda.synchronize()
+        counts[f"bound_{engine}"] = kernel_counts()
+        check(counts[f"bound_{engine}"]["gather_l2_tiled"] > 0,
+              f"the W = 4 {engine} search never launched gather_l2_tiled")
+        ids, dists = res.ids.cpu().numpy(), res.dists.cpu().numpy()
+        check(bool(((ids >= 0) & (ids < base_h.shape[0])).all())
+              and all(len(set(r.tolist())) == len(r) for r in ids)
+              and bool((np.diff(dists, axis=1) >= -1e-5).all()),
+              f"W = 4 {engine}: ids invalid, repeated or out of order")
+        true = np.linalg.norm(base_h[ids] - q_h[:, None, :], axis=-1)
+        check(np.allclose(dists, true, rtol=1e-4, atol=1e-4),
+              f"W = 4 {engine}: served distances are not the exact ones")
+        bad = check_delta_bound(dists, oracle_d, g.delta)
+        check(bad is None, f"W = 4 {engine}: {bad}")
+        worst[engine] = float((dists / np.maximum(oracle_d, 1e-12)).max())
+    print(f"[bound] W = 4 on the exact build (δ = {g.delta}): every rank of "
+          f"{BOUND_QUERIES} off-corpus queries within 1/δ = "
+          f"{1 / g.delta:.0f}× the exact k-NN's for {', '.join(BOUND_ENGINES)}"
+          f"; largest ratio per engine {json.dumps(worst)} ({card})")
 
 
 def baselines_phase(torch, card: str) -> None:
@@ -1392,6 +1517,176 @@ def mips_phase(torch, card: str, counts: dict) -> None:
           f"ids equal to the plain path on {share:.4f} of 256 queries; "
           f"launches {json.dumps(counts['mips'])}; the build's "
           f"{json.dumps(counts['mips_build'])} ({card})")
+
+
+def sift1m_phase(torch, card: str, counts: dict) -> dict:
+    """The paper's own configuration, ``configs/sift1m.py``, on the card:
+    every build and search parameter from the port's registry (M 64, L
+    1000, t 64, I 3, degree-aligned; l_max 512, α 1.2, max_hops 4096),
+    with n cut to ``SIFT_N`` and ``BuildParams.block`` raised to
+    ``SIFT_BLOCK`` (each block's searches read the graph frozen at the
+    start of its iteration, so the block does not change the graph:
+    ``tests/test_torch_configs.py``), both printed.  A one-shard index
+    from ``build_sharded(base, 1, build, quantized=True)``: build seconds
+    per phase, the share of the build's searches cut at ``max_hops``, the
+    degrees, the nodes cut off (C.5), the launches of the refinement
+    (path ``sift1m_build``) and of the degree alignment
+    (``sift1m_align``: its batch is the nodes short of M, printed); then
+    ``serve_online`` (256) and ``serve_batch`` (4,096) each as one call
+    of ``launch.steps.ann_serve``: seconds, QPS, hops, recall@10, model
+    FLOP/s; served distances against the exact ones, ``serve_online``'s
+    ids against the plain path (``backend="jnp"``); and the exact-distance
+    ``search`` on the same graph with the same ``SearchParams``, whose
+    recall is the graph's alone (the served recall is the graph's with
+    the RaBitQ estimate)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import search
+    from repro_torch.core.build_approx import _bfs_reachable
+    from repro_torch.core.distances import brute_force_knn
+    from repro_torch.core.distributed import build_sharded, make_sharded_search
+    from repro_torch.data import clustered_vectors
+    from repro_torch.launch.steps import _ann_model_flops, ann_serve
+    from repro_torch.obs import MetricsRegistry
+
+    class PhaseLaunches(MetricsRegistry):
+        """A registry that also keeps the launch counts as each build
+        phase ends (``build_progress`` events)."""
+
+        def __init__(self):
+            super().__init__()
+            self.launches = {}
+
+        def event(self, name, **fields):
+            if name == "build_progress":
+                self.launches[fields["phase"]] = kernel_counts()
+            return super().event(name, **fields)
+
+    arch = get_arch(SIFT_ARCH)
+    mc = arch.model_cfg
+    bp = dataclasses.replace(mc["build"], block=SIFT_BLOCK)
+    sp = mc["search"]
+    n, d = SIFT_N, mc["dim"]
+    print(f"[sift1m] cuts: n {n:,} of the {mc['n']:,} target, block "
+          f"{mc['build'].block} → {bp.block}; from the registry: M "
+          f"{bp.max_degree}, L {bp.beam_width}, t {bp.t}, I {bp.iters}, "
+          f"align_degree {bp.align_degree}, build max_hops {bp.max_hops}; "
+          f"search k {sp.k}, l_max {sp.l_max}, α {sp.alpha}, max_hops "
+          f"{sp.max_hops}; data clustered_vectors({n}, {d}, 48) ({card})")
+    base = clustered_vectors(n, d, 48, seed=SIFT_SEEDS[0])
+    B_max = max(s.dims["batch"] for s in arch.shapes.values())
+    queries = torch.as_tensor(clustered_vectors(B_max, d, 48,
+                                                seed=SIFT_SEEDS[1]),
+                              device="cuda")
+    reg = PhaseLaunches()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sidx = build_sharded(base, 1, bp, quantized=True, device="cuda",
+                         metrics=reg)
+    idx = sidx.slots[0]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    total = kernel_counts()
+    # the refinement's launches end with its last iteration's event; the
+    # rest are the degree alignment's (the RaBitQ fit launches none)
+    refined = reg.launches[f"refine_iter{bp.iters - 1}"]
+    counts["sift1m_build"] = refined
+    counts["sift1m_align"] = {k: v - refined[k] for k, v in total.items()}
+    for kernel in ("gather_l2_tiled", "batched_l2"):
+        check(counts["sift1m_build"][kernel] > 0,
+              f"the sift1m refinement never launched {kernel}")
+    check(counts["sift1m_align"]["batched_l2"] > 0,
+          "the sift1m degree alignment never launched batched_l2")
+    events = [e for e in reg.events if e["name"] == "build_progress"]
+    phase_s = {e["phase"]: e["elapsed_s"] for e in events}
+    capped = sum(e.get("capped", 0) for e in events)
+    capped_share = capped / (n * bp.iters)
+    short = next(e["short"] for e in events if e["phase"] == "align_degree")
+    deg = idx.graph.degrees()
+    cut = int((~_bfs_reachable(idx.graph.neighbors, idx.graph.medoid)).sum())
+    reach = 1.0 - cut / n
+    out = dict(n=n, target_n=mc["n"], block=bp.block, build_s=build_s,
+               phase_s=phase_s, capped=capped, capped_share=capped_share,
+               aligned_nodes=short,
+               align_shape=f"rows[{short},{bp.max_degree + 1},{d}] and "
+                           f"[{short},{bp.max_degree},{d}]",
+               mean_degree=float(deg.float().mean()),
+               min_degree=int(deg.min()),
+               degree_m_share=float((deg == bp.max_degree).float().mean()),
+               unreachable=cut, launches_build=counts["sift1m_build"],
+               launches_align=counts["sift1m_align"])
+    print(f"[sift1m] built n={n} in {build_s:.1f} s (phases "
+          f"{json.dumps({k: round(v, 2) for k, v in phase_s.items()})}); "
+          f"{capped} of {n * bp.iters} build searches ({capped_share:.4f}) "
+          f"cut at {bp.max_hops} hops; {short} nodes short of M aligned "
+          f"(the alignment's batch: {out['align_shape']}); degree mean "
+          f"{out['mean_degree']:.2f} min {out['min_degree']}, "
+          f"{out['degree_m_share']:.4f} at M; {cut} "
+          f"nodes unreachable from the medoid (C.5); launches: refinement "
+          f"{json.dumps(counts['sift1m_build'])}, alignment "
+          f"{json.dumps(counts['sift1m_align'])} ({card})")
+    check(reach >= MIN_REACH_REPAIRED,
+          f"sift1m: only {reach:.4f} of nodes reachable from the medoid")
+
+    served = {}
+    for name in ("serve_online", "serve_batch"):
+        shape = arch.shapes[name]
+        B = shape.dims["batch"]
+        q = queries[:B]
+        run = ann_serve(arch, shape, sidx)
+        stats = {}
+        path = f"sift1m_{name}"
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, dists = run(q, stats)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts[path] = kernel_counts()
+        for kernel in ("gather_l2_tiled", "fused_estimate"):
+            check(counts[path][kernel] > 0, f"{path} never launched {kernel}")
+        check(tuple(ids.shape) == (B, sp.k) and bool((ids >= 0).all())
+              and bool(torch.isfinite(dists).all()),
+              f"{path}: results are not {B} × {sp.k} valid ids and finite "
+              "distances")
+        exact = torch.linalg.norm(idx.graph.vectors[ids.long()]
+                                  - q[:, None, :], dim=-1)
+        check(torch.allclose(dists, exact, rtol=1e-4, atol=1e-4),
+              f"{path}: served distances are not the exact distances of "
+              "the served ids")
+        _, gt = brute_force_knn(q, idx.graph.vectors, sp.k)
+        hops = stats["n_hops"][0].float()
+        flops = _ann_model_flops(arch, shape, sidx)
+        # the graph alone: exact distances on every hop, the same params
+        graph_res = search(idx.graph, q, sp)
+        served[name] = dict(batch=B, s=secs, qps=B / secs,
+                            recall=recall_at(ids, gt),
+                            graph_recall=recall_at(graph_res.ids, gt),
+                            graph_mean_hops=float(
+                                graph_res.n_hops.float().mean()),
+                            mean_hops=float(hops.mean()),
+                            max_hops=int(hops.max()),
+                            model_tflops=flops / secs / 1e12,
+                            launches=counts[path])
+        if name == "serve_online":
+            plain = make_sharded_search(merge="all_gather", quantized=True,
+                                        backend="jnp")(sidx, q, sp)
+            served[name]["plain_agree"] = agree(plain[0], ids)
+            check(served[name]["plain_agree"] >= MIN_AGREE,
+                  f"{path}: ids match the plain path on "
+                  f"{served[name]['plain_agree']:.4f} of queries")
+        r = served[name]
+        print(f"[sift1m] {name}: {B} queries in one call, {secs:.3f} s, QPS "
+              f"{r['qps']:.1f}, hops mean {r['mean_hops']:.1f} max "
+              f"{r['max_hops']}, recall@10 {r['recall']:.4f} (the exact "
+              f"search on the same graph: {r['graph_recall']:.4f}, hops "
+              f"mean {r['graph_mean_hops']:.1f}), model "
+              f"{r['model_tflops']:.4g} TFLOP/s (B·l_max·2·d = {flops:.4g})"
+              + (f", ids equal to the plain path on {r['plain_agree']:.4f}"
+                 if "plain_agree" in r else "")
+              + f"; launches {json.dumps(counts[path])} ({card})")
+    out.update(served)
+    return out
 
 
 def synced_ms(torch, fn, reps: int = 5):
@@ -2910,6 +3205,51 @@ def moe_phase(torch, card: str, counts: dict,
     return rows, summary
 
 
+def examples_phase(torch, card: str) -> dict:
+    """The four port examples (``examples/torch_*.py``) on the card, each
+    in this process through its ``main(argv)`` at its own sizes, in the
+    order of ``EXAMPLE_RUNS``: the quickstart, vector serving (then 4
+    shards on the one card), the 46M-parameter LM trained 40 steps with a
+    checkpoint every 20 under ``build/examples/lm`` and resumed to 60,
+    and MIND trained and retrieved through the δ-EMQG index.  Each must
+    finish and print its result lines; its seconds and the numbers its
+    ``main`` returns are printed on an ``[examples]`` line."""
+    import importlib.util
+    import math
+    import shutil
+
+    ckpt = ROOT / "build" / "examples" / "lm"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out = {}
+    for name, argv in EXAMPLE_RUNS:
+        argv = argv + (["--ckpt-dir", str(ckpt)] if name == "train_lm"
+                       else [])
+        spec = importlib.util.spec_from_file_location(
+            f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.perf_counter()
+        res = mod.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        key = name if name not in out else f"{name}_resumed"
+        out[key] = dict(s=secs, argv=argv, **res)
+        print(f"[examples] {key} {' '.join(argv)}: {secs:.1f} s; "
+              f"{json.dumps(res)} ({card})")
+        torch.cuda.empty_cache()
+    first, resumed = out["train_lm"], out["train_lm_resumed"]
+    check(first["start"] == 0 and resumed["start"] == 40,
+          f"train_lm resumed at step {resumed['start']}, not 40")
+    losses = first["losses"] + resumed["losses"]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"train_lm's losses are not finite and falling: {losses}")
+    for key in ("quickstart", "vector_serve", "recsys_retrieval"):
+        check(all(math.isfinite(v) for v in out[key].values()
+                  if isinstance(v, float)),
+              f"the {key} example's numbers are not finite: {out[key]}")
+    return out
+
+
 def _device_us(torch, event) -> float:
     """Device time of a kernel or copy row; 0 for a host row (whose
     ``self_device_time_total`` repeats its kernels' time)."""
@@ -2958,7 +3298,7 @@ def profile_phase(torch, idx, vq, out: Path, card: str) -> None:
     """Where a hop's time goes: ``torch.profiler`` over one served batch of
     128 queries with ``max_hops = PROFILE_HOPS`` (the profiler's own
     processing of a whole batch's ~300k launches took minutes), and over
-    one 1024-node candidate search of the build (the build's own search
+    one block's candidate search of the build (the build's own search
     parameters), on the served index, each with device activity alone
     (``cpu=False``: the runtime's launch calls are kept, the host's
     operators are not; with them the profiler's own processing took most
@@ -3085,7 +3425,9 @@ def live_phase(torch, idx, vq, card: str, counts: dict) -> dict:
 
     root = ROOT / "build" / "live"
     shutil.rmtree(root, ignore_errors=True)
-    live0 = as_live(idx.graph, BuildParams(**BUILD_PARAMS))
+    # the live ops work in blocks of LIVE_INSERT rows (the live row's shape)
+    live0 = as_live(idx.graph, BuildParams(**{**BUILD_PARAMS,
+                                              "block": LIVE_INSERT}))
     reg = MetricsRegistry()
     summary = dict(audit=[live_audit(torch, live0, "the build", card)])
 
@@ -3824,6 +4166,12 @@ def main(argv=None) -> int:
     timed("exact_build", exact_build_phase, torch, card, counts)
     timed("baselines", baselines_phase, torch, card)
     timed("mips", mips_phase, torch, card, counts)
+    sift1m = timed("sift1m", sift1m_phase, torch, card, counts)
+    # the alignment's batch is the nodes short of M: its row times the
+    # largest it can be, the block
+    rows[("batched_l2", "sift1m_align")]["path_shape"] = sift1m["align_shape"]
+    print(f"[sift1m-summary] {json.dumps(sift1m)} card={card}")
+    torch.cuda.empty_cache()
     recsys = timed("recsys", recsys_phase, torch, card, counts,
                    ROOT / "build" / "profile")
     torch.cuda.empty_cache()
@@ -3844,6 +4192,9 @@ def main(argv=None) -> int:
     moe_rows, moe = timed("moe", moe_phase, torch, card, counts,
                           ROOT / "build" / "profile")
     rows.update(moe_rows)
+    torch.cuda.empty_cache()
+    examples = timed("examples", examples_phase, torch, card)
+    print(f"[examples-summary] {json.dumps(examples)} card={card}")
 
     for (name, path), r in rows.items():
         # each kernel behind an entry point ran on the path of its shape

@@ -1,36 +1,39 @@
-"""Arch / shape registry of the port: a copy of the part of
-``repro.configs.base`` that the ported models use (``ShapeSpec``,
-``ArchSpec``, ``lm_shapes``, ``recsys_shapes``, ``register``,
-``get_arch``), with only the fields and shapes that a port path reads.
+"""Arch / shape registry of the port: the counterpart of
+``repro.configs.base`` (``ShapeSpec``, ``ArchSpec``, ``register``,
+``get_arch``, ``all_archs``, ``load_all`` and the shared shape sets
+``lm_shapes`` and ``recsys_shapes``), holding every arch of the
+reference with the same ids, families and shapes.
 
-An arch's module is listed in ``_ARCH_MODULES`` once its model is ported:
-smollm-135m came with the LM slice, the other four LM archs with the MoE
-slice, fm, dcn-v2, dien and mind with the recsys slice, gat-cora with the
-GNN slice.  ``family`` ("lm", "recsys", "gnn") says which of
-``launch.train``'s loops trains an arch.
+``family`` ("lm", "recsys", "gnn", "ann") says which of
+``launch.train``'s loops trains an arch; "ann" (sift1m, the paper's own
+configuration) has nothing to train and is served
+(``launch.steps.ann_serve``).  ``skip`` marks a shape that is not
+runnable for the arch, with the reason.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any
+from typing import Any, Optional
 
 
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str                   # train | prefill | serve | retrieval |
-    #                             full_graph | minibatch | molecule
+    kind: str                   # train | prefill | decode | serve |
+    #                             retrieval | full_graph | minibatch |
+    #                             molecule | ann_serve
     dims: dict                  # family-specific dimensions
+    skip: Optional[str] = None  # reason string → shape not runnable
     accum_steps: int = 1        # microbatch accumulation for train kinds
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     id: str
-    family: str                 # lm | recsys | gnn
-    model_cfg: Any              # the family's config dataclass
+    family: str                 # lm | recsys | gnn | ann
+    model_cfg: Any              # the family's config (dataclass or dict)
     shapes: dict[str, ShapeSpec]
     source: str = ""            # provenance note
     smoke_cfg: Any = None       # reduced config for CPU tests
@@ -42,11 +45,12 @@ _ARCH_MODULES = [
     "internlm2_20b",
     "phi3_mini_3_8b",
     "smollm_135m",
+    "gat_cora",
     "mind",
     "dien",
     "fm",
     "dcn_v2",
-    "gat_cora",
+    "sift1m",
 ]
 
 _REGISTRY: dict[str, ArchSpec] = {}
@@ -58,26 +62,47 @@ def register(spec: ArchSpec) -> ArchSpec:
 
 
 def get_arch(arch_id: str) -> ArchSpec:
-    if not _REGISTRY:
-        for mod in _ARCH_MODULES:
-            importlib.import_module(f"repro_torch.configs.{mod}")
+    if arch_id not in _REGISTRY:
+        load_all()
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch '{arch_id}'; have {sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]
 
 
-def lm_shapes(accum_train: int = 8) -> dict[str, ShapeSpec]:
-    """The reference's LM shapes that a port path runs: ``train_4k``
-    (``launch.train`` and ``chip_smoke.py``'s train phase, the batch cut to
-    what one card holds) with the arch's microbatch accumulation, and
-    ``prefill_32k`` (``chip_smoke.py``'s prefill, its batch cut to 1).  The
-    decode shapes come with the slice that runs them."""
+def all_archs() -> list[ArchSpec]:
+    load_all()
+    return list(_REGISTRY.values())
+
+
+def load_all() -> None:
+    """Import every arch's module (each registers its arch once)."""
+    for mod in _ARCH_MODULES:
+        importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+def lm_shapes(*, sub_quadratic: bool,
+              accum_train: int = 8) -> dict[str, ShapeSpec]:
+    """The reference's four LM shapes: ``train_4k`` (``launch.train`` and
+    ``chip_smoke.py``'s train phase, the batch cut to what one card holds)
+    with the arch's microbatch accumulation, ``prefill_32k``
+    (``chip_smoke.py``'s prefill, its batch cut to 1), and the decode
+    shapes ``decode_32k`` and ``long_500k``, which no port path runs yet
+    (``decode_32k``'s batch of 128 does not fit one card: smollm's bf16 KV
+    cache alone is ≈ 97 GB).  ``long_500k`` is skipped for an arch whose
+    attention is full, as in the reference."""
+    skip = (None if sub_quadratic else
+            "pure full-attention arch — long_500k needs sub-quadratic "
+            "attention (DESIGN.md §Shape-cell notes)")
     return {
         "train_4k": ShapeSpec("train_4k", "train",
                               {"seq": 4096, "batch": 256},
                               accum_steps=accum_train),
         "prefill_32k": ShapeSpec("prefill_32k", "prefill",
                                  {"seq": 32768, "batch": 32}),
+        "decode_32k": ShapeSpec("decode_32k", "decode",
+                                {"seq": 32768, "batch": 128}),
+        "long_500k": ShapeSpec("long_500k", "decode",
+                               {"seq": 524288, "batch": 1}, skip=skip),
     }
 
 

@@ -13,7 +13,7 @@ ARCH = register(ArchSpec(
         n_layers=48, d_model=6144, n_heads=48, n_kv_heads=8, head_dim=128,
         d_ff=16384, vocab=92544, dtype=torch.bfloat16,
     ),
-    shapes=lm_shapes(accum_train=16),
+    shapes=lm_shapes(sub_quadratic=False, accum_train=16),
     source="arXiv:2403.17297; hf",
     smoke_cfg=LMConfig(
         name="internlm2-smoke", n_layers=3, d_model=96, n_heads=6,

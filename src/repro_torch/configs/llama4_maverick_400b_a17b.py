@@ -21,7 +21,7 @@ ARCH = register(ArchSpec(
         window=8192, window_period=4,
         dtype=torch.bfloat16,
     ),
-    shapes=lm_shapes(accum_train=4),
+    shapes=lm_shapes(sub_quadratic=True, accum_train=4),
     source="hf:meta-llama/Llama-4-Scout-17B-16E; unverified",
     smoke_cfg=LMConfig(
         name="llama4-smoke", n_layers=4, d_model=64, n_heads=4, n_kv_heads=2,

@@ -19,7 +19,7 @@ ARCH = register(ArchSpec(
         moe_period=1, first_dense=1,
         dtype=torch.bfloat16,
     ),
-    shapes=lm_shapes(accum_train=8),
+    shapes=lm_shapes(sub_quadratic=False, accum_train=8),
     source="hf:moonshotai/Moonlight-16B-A3B; hf",
     smoke_cfg=LMConfig(
         name="moonshot-smoke", n_layers=3, d_model=64, n_heads=4, n_kv_heads=4,

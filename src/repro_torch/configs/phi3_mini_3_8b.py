@@ -14,7 +14,7 @@ ARCH = register(ArchSpec(
         n_layers=32, d_model=3072, n_heads=32, n_kv_heads=32, head_dim=96,
         d_ff=8192, vocab=32064, dtype=torch.bfloat16,
     ),
-    shapes=lm_shapes(accum_train=8),
+    shapes=lm_shapes(sub_quadratic=False, accum_train=8),
     source="arXiv:2404.14219; unverified",
     smoke_cfg=LMConfig(
         name="phi3-smoke", n_layers=3, d_model=64, n_heads=4, n_kv_heads=4,

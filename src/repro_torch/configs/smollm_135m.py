@@ -13,7 +13,7 @@ ARCH = register(ArchSpec(
         n_layers=30, d_model=576, n_heads=9, n_kv_heads=3, head_dim=64,
         d_ff=1536, vocab=49152, dtype=torch.bfloat16,
     ),
-    shapes=lm_shapes(accum_train=4),
+    shapes=lm_shapes(sub_quadratic=False, accum_train=4),
     source="hf:HuggingFaceTB/SmolLM-135M; hf",
     smoke_cfg=LMConfig(
         name="smollm-smoke", n_layers=3, d_model=48, n_heads=3, n_kv_heads=3,

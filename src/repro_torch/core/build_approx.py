@@ -212,11 +212,14 @@ def _repair_connectivity(vectors: torch.Tensor, nbr: torch.Tensor,
 
 def _candidate_search(graph: GraphIndex, queries: torch.Tensor, L: int,
                       max_hops: int):
-    """Line 6: R_u ← GreedySearch(G, v_s, u, L, L), returning candidates."""
+    """Line 6: R_u ← GreedySearch(G, v_s, u, L, L), returning candidates
+    and how many of the searches ended at ``max_hops`` (a device
+    scalar)."""
     p = SearchParams(k=min(L, graph.n), l0=L, l_max=L, adaptive=False,
                      max_hops=max_hops)
-    _, cand_ids, cand_dists = search(graph, queries, p, with_candidates=True)
-    return cand_ids, cand_dists
+    res, cand_ids, cand_dists = search(graph, queries, p,
+                                       with_candidates=True)
+    return cand_ids, cand_dists, (res.n_hops >= max_hops).sum()
 
 
 def _reverse_lists(nbr: torch.Tensor, cap: int) -> torch.Tensor:
@@ -341,10 +344,13 @@ def build_approx(vectors, params: BuildParams = BuildParams(),
         # out-neighbors ∪ reverse neighbors (see the reference's comment)
         cur_nbr = graph.neighbors
         rev_nbr = _reverse_lists(cur_nbr, M)
+        capped = torch.zeros((), dtype=torch.int64, device=dev)
         for s in range(0, n, p.block):
             e = min(s + p.block, n)
             ids_blk = torch.arange(s, e, dtype=torch.int32, device=dev)
-            cand_ids, _ = _candidate_search(graph, vectors[s:e], L, p.max_hops)
+            cand_ids, _, cut = _candidate_search(graph, vectors[s:e], L,
+                                                 p.max_hops)
+            capped += cut
             merged = torch.cat([cand_ids, cur_nbr[s:e], rev_nbr[s:e]], dim=1)
             merged = _dedup_rows(merged, ids_blk)
             cand_ids, cand_dists = _prep_candidates(vectors, ids_blk, merged, L)
@@ -364,16 +370,18 @@ def build_approx(vectors, params: BuildParams = BuildParams(),
         _build_event(metrics, verbose, f"refine_iter{it}", nodes=n,
                      elapsed_s=elapsed, nodes_per_s=n / max(elapsed, 1e-9),
                      mean_deg=float((new_nbr >= 0).sum(1).float().mean()),
-                     repaired=n_fixed)
+                     repaired=n_fixed, capped=int(capped))
 
     if p.align_degree:
         t0 = time.perf_counter()
         nbr = graph.neighbors.clone()
         deg = (nbr >= 0).sum(1, dtype=torch.int32)
+        short = int((deg < M).sum())
         _align_degrees(vectors, nbr, deg, cand_ids_all, cand_dists_all, p)
         _repair_connectivity(vectors, nbr, deg, M, med)
         graph = make_graph(nbr, kind="delta_emqg")
         elapsed = time.perf_counter() - t0
         _build_event(metrics, verbose, "align_degree", nodes=n,
-                     elapsed_s=elapsed, nodes_per_s=n / max(elapsed, 1e-9))
+                     elapsed_s=elapsed, nodes_per_s=n / max(elapsed, 1e-9),
+                     short=short)
     return graph

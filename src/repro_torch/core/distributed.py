@@ -159,29 +159,33 @@ def shard_rows(vectors: np.ndarray, shard: int, per: int) -> tuple[np.ndarray, i
 
 def build_shard(rows: np.ndarray, shard: int,
                 params: Optional[BuildParams] = None,
-                quantized: bool = False, seed: int = 0, device="cuda"):
+                quantized: bool = False, seed: int = 0, device="cuda",
+                metrics=None):
     """Build one shard's index exactly as ``build_sharded`` does (per-shard
     seed ``seed + shard``, which also seeds the RaBitQ rotation) — shared
     with ``core.repair`` so that a rebuilt shard is bit-identical to the
-    original."""
+    original.  ``metrics`` receives the build's events (observation
+    only)."""
     p = dataclasses.replace(params or BuildParams(), seed=seed + shard)
     if quantized:
-        return build_emqg(rows, p, device=device)
-    return build_approx(rows, p, device=device)
+        return build_emqg(rows, p, metrics=metrics, device=device)
+    return build_approx(rows, p, metrics=metrics, device=device)
 
 
 def build_sharded(vectors, n_shards: int, params: Optional[BuildParams] = None,
                   quantized: bool = False, seed: int = 0,
-                  device="cuda") -> ShardedIndex:
+                  device="cuda", metrics=None) -> ShardedIndex:
     """Contiguous row partition; per-shard Algorithm-4 builds on ``device``
-    (equal-sized, last shard padded by wrapping)."""
+    (equal-sized, last shard padded by wrapping).  ``metrics`` receives
+    every shard's build events (observation only)."""
     vectors = np.asarray(vectors, np.float32)
     n = vectors.shape[0]
     per = int(np.ceil(n / n_shards))
     shards, offsets, sizes = [], [], []
     for s in range(n_shards):
         rows, n_real = shard_rows(vectors, s, per)
-        shards.append(build_shard(rows, s, params, quantized, seed, device))
+        shards.append(build_shard(rows, s, params, quantized, seed, device,
+                                  metrics))
         offsets.append(s * per)
         sizes.append(n_real)
     return stack_indices(shards, offsets, n, sizes=sizes)
@@ -264,7 +268,8 @@ def _stacked(sidx: ShardedIndex):
 
 def _lockstep_search(sidx: ShardedIndex, live: list, q: torch.Tensor,
                      params: SearchParams, quantized: bool,
-                     backend: str = "auto") -> list:
+                     backend: str = "auto", hops: Optional[list] = None
+                     ) -> list:
     """The ``live`` slots' searches of the queries ``q`` [B, d] as one
     lock-step search over S·B rows of ``_stacked(sidx)``: the queries
     once a live slot, each row starting at its slot's medoid, with its
@@ -272,7 +277,8 @@ def _lockstep_search(sidx: ShardedIndex, live: list, q: torch.Tensor,
     slot's rows alone (``seen_base``), so the bitsets take S·B rows of
     one slot's width.  Returns each live slot's (local ids, dists)
     [B, k], equal to its own ``_local_search``'s: every step of the
-    engine is per row, and a row's ids stay in its slot's rows."""
+    engine is per row, and a row's ids stay in its slot's rows.  A
+    ``hops`` list receives each live slot's ``n_hops`` [B]."""
     graph, codes, bases = _stacked(sidx)
     slots = [sidx.slots[s] for s in live]
     width = max(_graph(x).n for x in slots)
@@ -304,6 +310,8 @@ def _lockstep_search(sidx: ShardedIndex, live: list, q: torch.Tensor,
                                 seen_base=base, seen_n=width)
         ids, d2 = st.cand_ids[:, :k], st.cand_d2[:, :k]
     dists = _true_dists(d2)
+    if hops is not None:
+        hops.extend(st.n_hops.split(B))
     return [(torch.where(i >= 0, i - bases[s], i), d)
             for i, d, s in zip(ids.split(B), dists.split(B), live)]
 
@@ -361,8 +369,10 @@ def make_sharded_search(merge: str = "all_gather", quantized: bool = False,
                         backend: str = "auto"):
     """Single-controller sharded search.
 
-    Returns ``run(sidx, queries [B, d], params, valid=None, around=None) →
-    (ids, dists)`` ``[B, k]`` tensors on the index's device.  The
+    Returns ``run(sidx, queries [B, d], params, valid=None, around=None,
+    stats=None) → (ids, dists)`` ``[B, k]`` tensors on the index's
+    device; a ``stats`` dict receives ``n_hops``, each searched slot's
+    per-query hop counts ``{slot: int32[B]}``.  The
     participating slots (``valid[slot]``, default all) are searched as
     ``probing_search`` (``quantized``) or ``search`` on ``backend`` would
     search each, all at once in one lock-step loop (``_lockstep_search``).
@@ -378,18 +388,20 @@ def make_sharded_search(merge: str = "all_gather", quantized: bool = False,
     _check_merge(merge)
 
     def run(sidx: ShardedIndex, queries, params: SearchParams, valid=None,
-            around=None):
+            around=None, stats=None):
         valid = np.ones(sidx.n_shards, bool) if valid is None \
             else np.asarray(valid, bool)
         q = as_queries(queries, sidx.device)
         live = [slot for slot in range(sidx.n_shards) if valid[slot]]
-        found = {}
+        found, hops = {}, []
         if live:
             with contextlib.ExitStack() as spans:
                 for slot in live if around is not None else ():
                     spans.enter_context(around(slot))
                 found = dict(zip(live, _lockstep_search(
-                    sidx, live, q, params, quantized, backend)))
+                    sidx, live, q, params, quantized, backend, hops)))
+        if stats is not None:
+            stats["n_hops"] = dict(zip(live, hops))
         lists = []
         for slot in range(sidx.n_shards):
             if not valid[slot]:

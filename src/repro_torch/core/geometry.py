@@ -52,6 +52,25 @@ OCCLUSION_RULES: dict[str, Callable] = {
 }
 
 
+# Navigable-ball and occlusion-region membership (Lemma 1, Def. 9) — used
+# by property tests; points on their inputs' device, the last axis the
+# coordinates.
+
+def in_navigable_ball(q, u, v, delta):
+    """True iff d(q, v) < δ·d(q, u): q lies in the ball where Lemma 1 bites."""
+    d2_qv = torch.sum((q - v) ** 2, dim=-1)
+    d2_qu = torch.sum((q - u) ** 2, dim=-1)
+    return d2_qv < delta * delta * d2_qu
+
+
+def in_occlusion_region(x, u, v, delta):
+    """Point-level Def. 9 membership (tests / visual debugging)."""
+    d2_xu = torch.sum((x - u) ** 2, dim=-1)
+    d2_xv = torch.sum((x - v) ** 2, dim=-1)
+    d2_uv = torch.sum((u - v) ** 2, dim=-1)
+    return occludes_delta(d2_uv, d2_xu, d2_xv, delta)
+
+
 def select_neighbors(cand_vecs: torch.Tensor, cand_d2: torch.Tensor,
                      cand_ids: torch.Tensor, deltas: torch.Tensor,
                      rule: str = "delta_emg", max_keep: int = 64):

@@ -1,5 +1,5 @@
-"""The recsys and GNN parts of the reference's ``repro.launch.steps``
-that have a meaning on one card.
+"""The recsys, GNN and ANN parts of the reference's
+``repro.launch.steps`` that have a meaning on one card.
 
 Recsys: each arch's initializer and loss (``_RECSYS_INIT``,
 ``_RECSYS_LOSS``), the forward its serve cell runs (``_RECSYS_SERVE``,
@@ -12,6 +12,11 @@ GNN: ``gnn_batch``, the batch ``_gnn_cell`` declares for one of gat-cora's
 four cells, made from ``sbm_graph`` (the full graphs and the graph the
 minibatch cell samples) and ``fanout_sample`` or ``molecule_batch``, and
 ``_gnn_model_flops``, that cell's count of a train step's FLOPs.
+
+ANN: ``ann_serve``, the serving call of ``_ann_serve_cell`` (the
+quantized local probing search and the all-gather top-k merge over a
+``ShardedIndex``, with the arch's ``SearchParams``), and
+``_ann_model_flops``, that cell's count of a call's FLOPs.
 
 The rest of that module lowers XLA dry-run cells for a TPU mesh and is
 not ported.
@@ -26,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.distributed import ShardedIndex, make_sharded_search
 from ..core.types import resolve_device
 from ..data import (CSRGraph, fanout_sample, molecule_batch, recsys_ctr_batch,
                     recsys_seq_batch, sbm_graph)
@@ -258,3 +264,34 @@ def gnn_loss(cfg, edge_chunk=None):
                            node_mask=b.get("node_mask"),
                            edge_chunk=edge_chunk)
     return loss
+
+
+# ---------------------------------------------------------------------------
+# ANN serving cells (sift1m)
+# ---------------------------------------------------------------------------
+
+def ann_serve(arch, shape, sidx: ShardedIndex):
+    """The serving call of ``_ann_serve_cell`` for ``arch`` (family "ann")
+    at ``shape`` over the built index ``sidx``: ``run(queries [B, d],
+    stats=None) → (ids, dists) [B, k]``, the quantized probing search of
+    every shard merged by ``make_sharded_search(merge="all_gather",
+    quantized=True)`` with the arch's ``SearchParams``, on the index's
+    device (``stats``: as that search's).  The reference's cell takes
+    abstract shapes on a mesh; here the index is built and the call
+    runs."""
+    if arch.family != "ann" or shape.kind != "ann_serve":
+        raise ValueError(f"{arch.id}/{shape.name} is not an ANN serve cell")
+    run = make_sharded_search(merge="all_gather", quantized=True)
+    params = arch.model_cfg["search"]
+    return lambda queries, stats=None: run(sidx, queries, params,
+                                           stats=stats)
+
+
+def _ann_model_flops(arch, shape, sidx: ShardedIndex) -> float:
+    """The reference's model FLOPs of one ANN serve call over ``sidx``:
+    the dense cost of an exact rerank of ``l_max`` candidates a query and
+    shard, B · S · l_max · 2 · dim (the useful-work floor of the probing
+    search), S the index's shards."""
+    B = shape.dims["batch"]
+    return B * sidx.n_shards * arch.model_cfg["search"].l_max * 2.0 \
+        * arch.model_cfg["dim"]

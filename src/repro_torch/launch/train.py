@@ -34,8 +34,9 @@ card, with the same checkpoint and resume loop:
 
 The reference's full path lowers its 256-chip dry-run cell, which has no
 meaning on one card.  It refuses, with a message: an arch the port does
-not have, the full path off the card, and an arch whose parameters,
-gradients and AdamW state do not fit the card (``plan_micro_batch``:
+not have, an ann arch (sift1m: an index, nothing to train), the full
+path off the card, and an arch whose parameters, gradients and AdamW
+state do not fit the card (``plan_micro_batch``:
 moonshot, llama4, internlm2 on an 80 GB card; ``plan_recsys_accum``).
 """
 
@@ -336,6 +337,10 @@ def main(argv=None) -> int:
         arch = get_arch(args.arch)
     except KeyError as e:
         raise SystemExit(f"[train] {e.args[0]}")
+    if arch.family == "ann":
+        raise SystemExit(f"[train] {arch.id} is an ann arch (family "
+                         f"'{arch.family}'): an index is built and served, "
+                         "there is nothing to train")
     if arch.family == "recsys":
         recsys_loop(arch, args.steps, args.ckpt_dir, args.smoke,
                     device=args.device)

@@ -1,3 +1,4 @@
+from .oracle import check_delta_bound, exact_knn, recall_at_k  # noqa: F401
 from .compare import indexes_equal  # noqa: F401
 from .faults import (  # noqa: F401
     FaultPlan,

@@ -1512,3 +1512,99 @@ def test_recsys_train_step_on_card_is_deterministic(cuda, arch_id):
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
     torch.testing.assert_close(runs[0][0].cpu(), cpu_m["loss"], rtol=1e-5,
                                atol=0)
+
+
+# sift1m's shapes at M = 64 (configs/sift1m.py; chip_smoke's sift1m
+# phase): the build's searches gather ids [block, 64], its selector keeps
+# [block, 64, 128] and the degree alignment's [block, 65, 128], the two
+# serve shapes estimate ids [256, 64] and [4096, 64] (W = 4); block =
+# chip_smoke's SIFT_BLOCK and one far smaller
+SIFT_BLOCKS = [512, 16384]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", SIFT_BLOCKS)
+def test_sift1m_gather_l2_tiled_on_card(cuda, B):
+    g = torch.Generator(device=cuda).manual_seed(B)
+    base = torch.randn((32768, 128), generator=g, device=cuda)
+    ids = torch.randint(0, 32768, (B, 64), generator=g, device=cuda,
+                        dtype=torch.int32)
+    ids[:, ::9] = -1
+    qs = torch.randn((B, 128), generator=g, device=cuda)
+    before = l2ops.KERNEL_LAUNCHES["gather_l2_rows"]
+    out = l2ops.gather_l2_tiled(base, ids, qs)
+    torch.cuda.synchronize()
+    assert l2ops.KERNEL_LAUNCHES["gather_l2_rows"] == before + 1
+    assert torch.isinf(out[ids < 0]).all()
+    ok = ids >= 0
+    torch.testing.assert_close(out[ok], l2ref.gather_l2_ref(base, ids, qs)[ok],
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", SIFT_BLOCKS)
+@pytest.mark.parametrize("M", [64, 65])
+def test_sift1m_batched_l2_on_card(cuda, B, M):
+    g = torch.Generator(device=cuda).manual_seed(B + M)
+    rows = torch.randn((B, M, 128), generator=g, device=cuda)
+    qs = torch.randn((B, 128), generator=g, device=cuda)
+    assert l2ops.batched_kernel(rows, qs) == "batched_l2_rows"
+    before = l2ops.KERNEL_LAUNCHES["batched_l2_rows"]
+    out = l2ops.batched_l2(rows, qs)
+    torch.cuda.synchronize()
+    assert l2ops.KERNEL_LAUNCHES["batched_l2_rows"] == before + 1
+    torch.testing.assert_close(out, l2ref.batched_l2_ref(rows, qs),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [256, 4096])
+def test_sift1m_fused_estimate_on_card(cuda, B):
+    args = _estimate_args(_estimate_inputs(B, 64, 128, n=32768, seed=B),
+                          cuda)
+    ids = args[3]
+    before = bitdot_ops.LAUNCHES["fused_estimate"]
+    out = bitdot_ops.fused_estimate(*args)
+    torch.cuda.synchronize()
+    assert bitdot_ops.LAUNCHES["fused_estimate"] == before + 1
+    assert torch.isinf(out[ids < 0]).all()
+    ok = ids >= 0
+    torch.testing.assert_close(out[ok],
+                               bitdot_ref.fused_estimate_ref(*args)[ok],
+                               rtol=1e-4, atol=1e-3)
+    expect = bitdot_ref.fused_estimate_kernel_order(*args)
+    assert torch.equal(out[ok].view(torch.int32), expect[ok].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["beam", "faithful", "probing", "ags"])
+def test_delta_bound_w4_on_card(cuda, engine):
+    """The (1/δ) bound at beam width 4 with the kernels, on ``from_graph``
+    of an exact build made on the card (δ = 0.2), through the port's
+    oracle (``tests/test_torch_search.py::test_delta_bound_w4`` on the
+    CPU; chip_smoke's exact-build phase at n = 4,000)."""
+    from repro_torch.core import from_graph
+    from repro_torch.testing import check_delta_bound, exact_knn
+
+    base = clustered_vectors(400, 16, 8, seed=0)
+    queries = clustered_vectors(32, 16, 8, seed=1)
+    g = build_exact(torch.from_numpy(base).to(cuda), delta=0.2,
+                    device="cuda")
+    idx = from_graph(g)
+    q = torch.from_numpy(queries).to(cuda)
+    p = SearchParams(k=5, l0=8, l_max=32, alpha=1.2, adaptive=True,
+                     max_hops=256, beam_width=4)
+    before = l2ops.LAUNCHES["gather_l2_tiled"]
+    res = {"beam": lambda: search(g, q, p),
+           "faithful": lambda: search(g, q, p, faithful_prune=True),
+           "probing": lambda: probing_search(idx, q, p),
+           "ags": lambda: ags_search(idx, q, p)}[engine]()
+    torch.cuda.synchronize()
+    assert l2ops.LAUNCHES["gather_l2_tiled"] > before
+    ids, dists = res.ids.cpu().numpy(), res.dists.cpu().numpy()
+    assert ((ids >= 0) & (ids < 400)).all()
+    assert all(len(set(r.tolist())) == len(r) for r in ids)
+    true = np.linalg.norm(base[ids] - queries[:, None, :], axis=-1)
+    np.testing.assert_allclose(dists, true, rtol=1e-4, atol=1e-4)
+    oracle_d = exact_knn(base, queries, p.k)[0]
+    assert check_delta_bound(dists, oracle_d, 0.2) is None

@@ -202,6 +202,9 @@ def _imported_modules(path: pathlib.Path):
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 4
+    files += examples
     assert len(files) > 20
     for f in files:
         for mod in _imported_modules(f):
