@@ -16,6 +16,7 @@ use the difference form, ``pairwise_sqdist`` the norm identity.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Optional
@@ -23,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..obs.tracing import maybe_span
 from .distances import brute_force_knn, medoid as find_medoid, pairwise_sqdist
 from .geometry import adaptive_deltas, select_neighbors
 from .search import search
@@ -306,30 +308,85 @@ def _align_degrees(vectors, nbr, deg, cand_ids_all, cand_dists_all,
         deg[idx] = cnt
 
 
+class BuildPhases:
+    """The build's phases as ``with phases(name, **attrs) as phase:``
+    blocks; ``phase["seconds"]`` is set when the block ends.
+
+    With a ``tracer`` each phase is a span of that name.  With a tracer or
+    a ``metrics`` registry the device is synchronised as a phase starts
+    and before it ends, so a phase is billed the device work it enqueued,
+    not the work still queued from the one before, and with a tracer its
+    seconds are its span's duration.  With neither it waits for nothing
+    (its seconds then read the host's enqueueing alone)."""
+
+    def __init__(self, device: torch.device, metrics=None, tracer=None):
+        self.tracer = tracer
+        self.sync = device.type == "cuda" and (
+            tracer is not None or metrics is not None)
+        self.device = device
+
+    def _wait(self) -> None:
+        if self.sync:
+            torch.cuda.synchronize(self.device)
+
+    @contextlib.contextmanager
+    def __call__(self, name: str, **attrs):
+        phase = {}
+        self._wait()
+        t0 = time.perf_counter()
+        with maybe_span(self.tracer, name, **attrs) as span:
+            yield phase
+            self._wait()
+        phase["seconds"] = span.duration_s if span is not None \
+            else time.perf_counter() - t0
+
+
+def on_device(vectors, device) -> torch.Tensor:
+    """The corpus as a contiguous float32 tensor on ``device``."""
+    return torch.as_tensor(vectors, dtype=torch.float32).to(
+        resolve_device(device)).contiguous()
+
+
 def build_approx(vectors, params: BuildParams = BuildParams(),
                  verbose: bool = False, metrics=None,
-                 device="cuda") -> GraphIndex:
+                 device="cuda", tracer=None) -> GraphIndex:
     """Algorithm 4 on ``device``.  Returns a localized, degree-balanced
     approximate δ-EMG.  ``metrics`` (an ``obs.MetricsRegistry``) receives
-    structured build events per phase; observation only."""
-    p = params
-    dev = resolve_device(device)
-    vectors = torch.as_tensor(vectors, dtype=torch.float32).to(dev).contiguous()
+    structured build events per phase; a ``tracer`` (an ``obs.Tracer``)
+    a ``build`` span (``n``) holding the phases' (``approx_graph``);
+    observation only."""
+    vectors = on_device(vectors, device)
+    phases = BuildPhases(vectors.device, metrics, tracer)
+    with phases("build", n=vectors.shape[0]):
+        return approx_graph(vectors, params, phases, verbose, metrics)
+
+
+def approx_graph(vectors: torch.Tensor, p: BuildParams, phases: BuildPhases,
+                 verbose: bool = False, metrics=None) -> GraphIndex:
+    """Algorithm 4 over ``vectors`` (on their device) in ``phases``:
+    ``build.bootstrap`` (medoid and k-NN graph); per refinement ``it``,
+    ``build.refine`` (``iter``) holding a ``build.search`` (the beam
+    searches) and a ``build.select`` (the candidates' dedup, re-rank and
+    selection) a block, then ``build.repair`` (``iter``: reverse edges and
+    the connectivity repair); with degree alignment ``build.align`` and
+    its ``build.repair`` (``iter`` "align")."""
+    dev = vectors.device
     n = vectors.shape[0]
     M, L = p.max_degree, min(p.beam_width, n)
-    t_boot = time.perf_counter()
-    med = find_medoid(vectors, seed=p.seed)
+
+    with phases("build.bootstrap") as boot:
+        med = find_medoid(vectors, seed=p.seed)
+        # line 2: bootstrap from a top-M approximate NN graph
+        _, knn_ids = brute_force_knn(vectors, vectors, min(M, n - 1),
+                                     exclude_self=True)
+        nbr = torch.full((n, M), -1, dtype=torch.int32, device=dev)
+        nbr[:, :knn_ids.shape[1]] = knn_ids
 
     def make_graph(nbr, kind="delta_emg_approx"):
         return GraphIndex(vectors, nbr, med, kind=kind, delta=p.delta or 0.0)
 
-    # line 2: bootstrap from a top-M approximate NN graph
-    _, knn_ids = brute_force_knn(vectors, vectors, min(M, n - 1),
-                                 exclude_self=True)
-    nbr = torch.full((n, M), -1, dtype=torch.int32, device=dev)
-    nbr[:, :knn_ids.shape[1]] = knn_ids
     graph = make_graph(nbr)
-    elapsed = time.perf_counter() - t_boot
+    elapsed = boot["seconds"]
     _build_event(metrics, verbose, "bootstrap", nodes=n, elapsed_s=elapsed,
                  nodes_per_s=n / max(elapsed, 1e-9))
 
@@ -337,50 +394,56 @@ def build_approx(vectors, params: BuildParams = BuildParams(),
     cand_dists_all = torch.full((n, L + 1), float("inf"), device=dev)
 
     for it in range(p.iters):
-        t0 = time.perf_counter()
-        new_nbr = torch.full((n, M), -1, dtype=torch.int32, device=dev)
-        new_deg = torch.zeros(n, dtype=torch.int32, device=dev)
-        # candidate enrichment: beam-search candidates ∪ current
-        # out-neighbors ∪ reverse neighbors (see the reference's comment)
-        cur_nbr = graph.neighbors
-        rev_nbr = _reverse_lists(cur_nbr, M)
-        capped = torch.zeros((), dtype=torch.int64, device=dev)
-        for s in range(0, n, p.block):
-            e = min(s + p.block, n)
-            ids_blk = torch.arange(s, e, dtype=torch.int32, device=dev)
-            cand_ids, _, cut = _candidate_search(graph, vectors[s:e], L,
-                                                 p.max_hops)
-            capped += cut
-            merged = torch.cat([cand_ids, cur_nbr[s:e], rev_nbr[s:e]], dim=1)
-            merged = _dedup_rows(merged, ids_blk)
-            cand_ids, cand_dists = _prep_candidates(vectors, ids_blk, merged, L)
-            kept, cnt = _select_block(vectors, cand_ids, cand_dists,
-                                      t=min(p.t, L), rule=p.rule, max_keep=M,
-                                      fixed_delta=p.delta)
-            new_nbr[s:e] = kept
-            new_deg[s:e] = cnt
-            if it == p.iters - 1:
-                cand_ids_all[s:e] = cand_ids
-                cand_dists_all[s:e] = cand_dists
+        with phases("build.refine", iter=it) as refine:
+            new_nbr = torch.full((n, M), -1, dtype=torch.int32, device=dev)
+            new_deg = torch.zeros(n, dtype=torch.int32, device=dev)
+            # candidate enrichment: beam-search candidates ∪ current
+            # out-neighbors ∪ reverse neighbors (see the reference's comment)
+            cur_nbr = graph.neighbors
+            rev_nbr = _reverse_lists(cur_nbr, M)
+            capped = torch.zeros((), dtype=torch.int64, device=dev)
+            for s in range(0, n, p.block):
+                e = min(s + p.block, n)
+                ids_blk = torch.arange(s, e, dtype=torch.int32, device=dev)
+                with phases("build.search"):
+                    cand_ids, _, cut = _candidate_search(graph, vectors[s:e],
+                                                         L, p.max_hops)
+                    capped += cut
+                with phases("build.select"):
+                    merged = torch.cat([cand_ids, cur_nbr[s:e],
+                                        rev_nbr[s:e]], dim=1)
+                    merged = _dedup_rows(merged, ids_blk)
+                    cand_ids, cand_dists = _prep_candidates(vectors, ids_blk,
+                                                            merged, L)
+                    kept, cnt = _select_block(vectors, cand_ids, cand_dists,
+                                              t=min(p.t, L), rule=p.rule,
+                                              max_keep=M, fixed_delta=p.delta)
+                    new_nbr[s:e] = kept
+                    new_deg[s:e] = cnt
+                    if it == p.iters - 1:
+                        cand_ids_all[s:e] = cand_ids
+                        cand_dists_all[s:e] = cand_dists
 
-        _add_reverse_edges(new_nbr, new_deg, M)
-        n_fixed = _repair_connectivity(vectors, new_nbr, new_deg, M, med)
+        with phases("build.repair", iter=it) as repair:
+            _add_reverse_edges(new_nbr, new_deg, M)
+            n_fixed = _repair_connectivity(vectors, new_nbr, new_deg, M, med)
         graph = make_graph(new_nbr)
-        elapsed = time.perf_counter() - t0
+        elapsed = refine["seconds"] + repair["seconds"]
         _build_event(metrics, verbose, f"refine_iter{it}", nodes=n,
                      elapsed_s=elapsed, nodes_per_s=n / max(elapsed, 1e-9),
                      mean_deg=float((new_nbr >= 0).sum(1).float().mean()),
                      repaired=n_fixed, capped=int(capped))
 
     if p.align_degree:
-        t0 = time.perf_counter()
-        nbr = graph.neighbors.clone()
-        deg = (nbr >= 0).sum(1, dtype=torch.int32)
-        short = int((deg < M).sum())
-        _align_degrees(vectors, nbr, deg, cand_ids_all, cand_dists_all, p)
-        _repair_connectivity(vectors, nbr, deg, M, med)
+        with phases("build.align") as align:
+            nbr = graph.neighbors.clone()
+            deg = (nbr >= 0).sum(1, dtype=torch.int32)
+            short = int((deg < M).sum())
+            _align_degrees(vectors, nbr, deg, cand_ids_all, cand_dists_all, p)
+        with phases("build.repair", iter="align") as repair:
+            _repair_connectivity(vectors, nbr, deg, M, med)
         graph = make_graph(nbr, kind="delta_emqg")
-        elapsed = time.perf_counter() - t0
+        elapsed = align["seconds"] + repair["seconds"]
         _build_event(metrics, verbose, "align_degree", nodes=n,
                      elapsed_s=elapsed, nodes_per_s=n / max(elapsed, 1e-9),
                      short=short)

@@ -77,7 +77,8 @@ import torch.distributed as dist
 from . import rabitq
 from .build_approx import BuildParams, build_approx
 from .emqg import build_emqg
-from .probing import _beam_probing_batch, probing_search
+from ..obs.tracing import Tracer, maybe_span
+from .probing import _beam_probing_batch, probing_search, traced_kw
 from .search import (_beam_search_batch, _true_dists, as_queries,
                      make_batch_dist_fn, resolve_backend, search)
 from .types import (EMQGIndex, GraphIndex, RaBitQCodes, SearchParams,
@@ -160,24 +161,27 @@ def shard_rows(vectors: np.ndarray, shard: int, per: int) -> tuple[np.ndarray, i
 def build_shard(rows: np.ndarray, shard: int,
                 params: Optional[BuildParams] = None,
                 quantized: bool = False, seed: int = 0, device="cuda",
-                metrics=None):
+                metrics=None, tracer=None):
     """Build one shard's index exactly as ``build_sharded`` does (per-shard
     seed ``seed + shard``, which also seeds the RaBitQ rotation) — shared
     with ``core.repair`` so that a rebuilt shard is bit-identical to the
-    original.  ``metrics`` receives the build's events (observation
-    only)."""
+    original.  ``metrics`` receives the build's events and ``tracer`` its
+    spans (``build_emqg`` / ``build_approx``; observation only)."""
     p = dataclasses.replace(params or BuildParams(), seed=seed + shard)
     if quantized:
-        return build_emqg(rows, p, metrics=metrics, device=device)
-    return build_approx(rows, p, metrics=metrics, device=device)
+        return build_emqg(rows, p, metrics=metrics, device=device,
+                          tracer=tracer)
+    return build_approx(rows, p, metrics=metrics, device=device,
+                        tracer=tracer)
 
 
 def build_sharded(vectors, n_shards: int, params: Optional[BuildParams] = None,
                   quantized: bool = False, seed: int = 0,
-                  device="cuda", metrics=None) -> ShardedIndex:
+                  device="cuda", metrics=None, tracer=None) -> ShardedIndex:
     """Contiguous row partition; per-shard Algorithm-4 builds on ``device``
     (equal-sized, last shard padded by wrapping).  ``metrics`` receives
-    every shard's build events (observation only)."""
+    every shard's build events and ``tracer`` a ``build`` span a shard
+    (observation only)."""
     vectors = np.asarray(vectors, np.float32)
     n = vectors.shape[0]
     per = int(np.ceil(n / n_shards))
@@ -185,7 +189,7 @@ def build_sharded(vectors, n_shards: int, params: Optional[BuildParams] = None,
     for s in range(n_shards):
         rows, n_real = shard_rows(vectors, s, per)
         shards.append(build_shard(rows, s, params, quantized, seed, device,
-                                  metrics))
+                                  metrics, tracer))
         offsets.append(s * per)
         sizes.append(n_real)
     return stack_indices(shards, offsets, n, sizes=sizes)
@@ -268,8 +272,8 @@ def _stacked(sidx: ShardedIndex):
 
 def _lockstep_search(sidx: ShardedIndex, live: list, q: torch.Tensor,
                      params: SearchParams, quantized: bool,
-                     backend: str = "auto", hops: Optional[list] = None
-                     ) -> list:
+                     backend: str = "auto", stats: Optional[dict] = None,
+                     tracer: Optional[Tracer] = None) -> list:
     """The ``live`` slots' searches of the queries ``q`` [B, d] as one
     lock-step search over S·B rows of ``_stacked(sidx)``: the queries
     once a live slot, each row starting at its slot's medoid, with its
@@ -278,12 +282,25 @@ def _lockstep_search(sidx: ShardedIndex, live: list, q: torch.Tensor,
     one slot's width.  Returns each live slot's (local ids, dists)
     [B, k], equal to its own ``_local_search``'s: every step of the
     engine is per row, and a row's ids stay in its slot's rows.  A
-    ``hops`` list receives each live slot's ``n_hops`` [B]."""
+    ``stats`` dict receives ``n_hops``, each live slot's hop counts [B]
+    in ``live``'s order, and ``iterations``, the loop's passes with a row
+    still searching (a host count: the loop calls its per-pass distance
+    once a pass, the estimate of δ-EMQG or, after the start's, the exact
+    distance of δ-EMG).  A ``tracer`` receives the probing loop's spans
+    (``_beam_probing_batch``)."""
     graph, codes, bases = _stacked(sidx)
     slots = [sidx.slots[s] for s in live]
     width = max(_graph(x).n for x in slots)
     B, k = q.shape[0], params.k
     qs = q.repeat(len(live), 1)
+    passes = 0
+
+    def counted(fn):
+        def call(*args):
+            nonlocal passes
+            passes += 1
+            return fn(*args)
+        return call
 
     def per_row(values):
         return torch.tensor(values, dtype=torch.int32,
@@ -297,21 +314,26 @@ def _lockstep_search(sidx: ShardedIndex, live: list, q: torch.Tensor,
         ctx = rabitq.QueryCtx(
             q=qs, q_unit=torch.cat([c.q_unit for c in ctxs]),
             sum_q=torch.cat([c.sum_q for c in ctxs]),
-            norm_q=torch.cat([c.norm_q for c in ctxs]), sqrt_d=ctxs[0].sqrt_d)
+            norm_q=torch.cat([c.norm_q for c in ctxs]),
+            sqrt_d=ctxs[0].sqrt_d)
         estimate = (rabitq.estimate_sqdist_plain
                     if resolve_backend(backend, q.device) == "jnp"
                     else rabitq.estimate_sqdist)
         st = _beam_probing_batch(graph.neighbors, width, exact,
-                                 lambda ids: estimate(codes, ctx, ids), qs,
-                                 start, params, seen_base=base)
+                                 counted(lambda ids: estimate(codes, ctx,
+                                                              ids)), qs,
+                                 start, params, seen_base=base,
+                                 **traced_kw(tracer))
         ids, d2 = st.ce_ids[:, :k], st.ce_d2[:, :k]
     else:
-        st = _beam_search_batch(graph, qs, start, params, exact,
+        st = _beam_search_batch(graph, qs, start, params, counted(exact),
                                 seen_base=base, seen_n=width)
+        passes -= 1                             # the start's distance
         ids, d2 = st.cand_ids[:, :k], st.cand_d2[:, :k]
     dists = _true_dists(d2)
-    if hops is not None:
-        hops.extend(st.n_hops.split(B))
+    if stats is not None:
+        stats["n_hops"] = list(st.n_hops.split(B))
+        stats["iterations"] = passes
     return [(torch.where(i >= 0, i - bases[s], i), d)
             for i, d, s in zip(ids.split(B), dists.split(B), live)]
 
@@ -370,9 +392,15 @@ def make_sharded_search(merge: str = "all_gather", quantized: bool = False,
     """Single-controller sharded search.
 
     Returns ``run(sidx, queries [B, d], params, valid=None, around=None,
-    stats=None) → (ids, dists)`` ``[B, k]`` tensors on the index's
-    device; a ``stats`` dict receives ``n_hops``, each searched slot's
-    per-query hop counts ``{slot: int32[B]}``.  The
+    stats=None, tracer=None) → (ids, dists)`` ``[B, k]`` tensors on the
+    index's device; a ``stats`` dict receives ``n_hops``, each searched
+    slot's per-query hop counts ``{slot: int32[B]}``, and ``iterations``,
+    the lock-step loop's passes with a row still searching (a host
+    integer; 0 with no slot searched).  A ``tracer`` receives an
+    ``ann.call`` span (``queries``, ``shards``) holding
+    ``search.lockstep`` (``rows``, S·B: ``_lockstep_search``'s stack,
+    query contexts, start distances and loop) and ``search.merge`` (the
+    lists' masking and merge).  The
     participating slots (``valid[slot]``, default all) are searched as
     ``probing_search`` (``quantized``) or ``search`` on ``backend`` would
     search each, all at once in one lock-step loop (``_lockstep_search``).
@@ -388,31 +416,39 @@ def make_sharded_search(merge: str = "all_gather", quantized: bool = False,
     _check_merge(merge)
 
     def run(sidx: ShardedIndex, queries, params: SearchParams, valid=None,
-            around=None, stats=None):
-        valid = np.ones(sidx.n_shards, bool) if valid is None \
-            else np.asarray(valid, bool)
-        q = as_queries(queries, sidx.device)
-        live = [slot for slot in range(sidx.n_shards) if valid[slot]]
-        found, hops = {}, []
-        if live:
-            with contextlib.ExitStack() as spans:
-                for slot in live if around is not None else ():
-                    spans.enter_context(around(slot))
-                found = dict(zip(live, _lockstep_search(
-                    sidx, live, q, params, quantized, backend, hops)))
-        if stats is not None:
-            stats["n_hops"] = dict(zip(live, hops))
-        lists = []
-        for slot in range(sidx.n_shards):
-            if not valid[slot]:
-                lists.append(_dead(q.shape[0], params.k, q.device))
-                continue
-            lists.append(_masked(*found[slot], sidx.offsets[slot],
-                                 None if sidx.sizes is None
-                                 else sidx.sizes[slot]))
-        if merge == "ring":
-            return _finish(*_merge_ring(lists, params.k))
-        return _finish(*_merge_all_gather(lists, params.k))
+            around=None, stats=None, tracer=None):
+        with maybe_span(tracer, "ann.call", queries=len(queries),
+                        shards=sidx.n_shards):
+            valid = np.ones(sidx.n_shards, bool) if valid is None \
+                else np.asarray(valid, bool)
+            q = as_queries(queries, sidx.device)
+            live = [slot for slot in range(sidx.n_shards) if valid[slot]]
+            found, counts = {}, {"n_hops": [], "iterations": 0}
+            if live:
+                with contextlib.ExitStack() as spans:
+                    for slot in live if around is not None else ():
+                        spans.enter_context(around(slot))
+                    spans.enter_context(maybe_span(
+                        tracer, "search.lockstep",
+                        rows=len(live) * q.shape[0]))
+                    found = dict(zip(live, _lockstep_search(
+                        sidx, live, q, params, quantized, backend, counts,
+                        tracer)))
+            if stats is not None:
+                stats["n_hops"] = dict(zip(live, counts["n_hops"]))
+                stats["iterations"] = counts["iterations"]
+            with maybe_span(tracer, "search.merge"):
+                lists = []
+                for slot in range(sidx.n_shards):
+                    if not valid[slot]:
+                        lists.append(_dead(q.shape[0], params.k, q.device))
+                        continue
+                    lists.append(_masked(*found[slot], sidx.offsets[slot],
+                                         None if sidx.sizes is None
+                                         else sidx.sizes[slot]))
+                if merge == "ring":
+                    return _finish(*_merge_ring(lists, params.k))
+                return _finish(*_merge_all_gather(lists, params.k))
 
     return run
 

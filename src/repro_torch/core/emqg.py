@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from . import rabitq
-from .build_approx import BuildParams, build_approx
+from .build_approx import (BuildParams, BuildPhases, approx_graph,
+                           on_device)
 from .types import EMQGIndex, GraphIndex
 
 
@@ -33,18 +34,24 @@ def _rotation(dim: int, generator, rotation, seed: int, device):
 def build_emqg(vectors, params: Optional[BuildParams] = None,
                generator: Optional[torch.Generator] = None,
                rotation=None, verbose: bool = False, metrics=None,
-               device="cuda") -> EMQGIndex:
+               device="cuda", tracer=None) -> EMQGIndex:
     """Full δ-EMQG build on ``device``: Algorithm 4 with degree alignment,
     then RaBitQ codes under ``rotation`` (or one drawn from
-    ``generator``)."""
+    ``generator``).  ``metrics`` and ``tracer`` observe as
+    ``build_approx``'s, the codes in a ``build.quantize`` span."""
     if params is None:
         params = BuildParams(align_degree=True)
     elif not params.align_degree:
         params = dataclasses.replace(params, align_degree=True)
-    graph = build_approx(vectors, params, verbose=verbose, metrics=metrics,
-                         device=device)
-    rot = _rotation(graph.dim, generator, rotation, params.seed, graph.device)
-    return EMQGIndex(graph=graph, codes=rabitq.fit(graph.vectors, rot))
+    vectors = on_device(vectors, device)
+    phases = BuildPhases(vectors.device, metrics, tracer)
+    with phases("build", n=vectors.shape[0]):
+        graph = approx_graph(vectors, params, phases, verbose, metrics)
+        with phases("build.quantize"):
+            rot = _rotation(graph.dim, generator, rotation, params.seed,
+                            graph.device)
+            codes = rabitq.fit(graph.vectors, rot)
+    return EMQGIndex(graph=graph, codes=codes)
 
 
 def from_graph(graph: GraphIndex, generator: Optional[torch.Generator] = None,

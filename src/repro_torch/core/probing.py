@@ -17,11 +17,13 @@ buffers with one exact call.
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from ..kernels.bitdot import ops as bitdot_ops
+from ..obs.tracing import Tracer, maybe_span
 from . import rabitq
 from .bitset import bitset_make, bitset_set, bitset_test, unique_per_row
 from .search import (
@@ -69,11 +71,20 @@ def _beam_probing_batch(neighbors: torch.Tensor, n_nodes: int,
                         batch_exact: Callable, batch_approx: Callable,
                         queries: torch.Tensor, start: torch.Tensor,
                         p: SearchParams,
-                        seen_base: Optional[torch.Tensor] = None
-                        ) -> _BeamPState:
+                        seen_base: Optional[torch.Tensor] = None,
+                        tracer: Optional[Tracer] = None) -> _BeamPState:
     """The lock-step probing loop; the visited bitset covers ``n_nodes``
     rows, from each row's ``seen_base`` on where given (``search.
-    seen_keys``)."""
+    seen_keys``).
+
+    A ``tracer`` receives a ``probe.iter`` span a pass (``i``, ``rows``
+    and ``active``, the rows still searching, read in the pass's one host
+    sync; the last pass finds none and ends the loop), holding the pass's
+    phases in order: ``probe.sync``, ``probe.select`` (NeedProbing and the
+    probe branch's select), ``probe.exact``, ``probe.select`` (the expand
+    branch's), ``probe.dedup``, ``probe.estimate``, ``probe.merge`` and
+    ``probe.transition`` (with the counters).  Without one the loop makes
+    no span and adds no op and no sync."""
     B = queries.shape[0]
     C = p.l_max + 1
     W = resolve_beam_width(p, C)
@@ -104,73 +115,105 @@ def _beam_probing_batch(neighbors: torch.Tensor, n_nodes: int,
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     saturated = torch.zeros(B, dtype=torch.bool, device=dev)
 
-    while True:
-        active = ~done & (n_hops < p.max_hops)
-        if not bool(active.any()):          # the one host sync per hop
-            break
-        in_l = (pos < l[:, None]) & active[:, None]
-        win_e = in_l & (ce_ids >= 0) & ~ce_vis
-        win_a = in_l & (ca_ids >= 0) & ~ca_prb
-        has_u = win_e.any(1)
-        has_w = win_a.any(1)
-        d2_u = torch.where(win_e, ce_d2, inf).amin(1)
-        d2_w = torch.where(win_a, ca_d2, inf).amin(1)
+    for i in itertools.count():
+        with maybe_span(tracer, "probe.iter", i=i, rows=B) as pass_span:
+            with maybe_span(tracer, "probe.sync"):
+                active = ~done & (n_hops < p.max_hops)
+                # the one host sync per hop; a tracer reads the count there
+                if tracer is None:
+                    going = bool(active.any())
+                else:
+                    n_active = int(active.sum())
+                    pass_span.set(active=n_active)
+                    going = n_active > 0
+            if not going:
+                break
 
-        # NeedProbing (lines 22-28): probe when the exact frontier stopped
-        # improving and the approx tier has something closer.
-        need_probe = torch.where(
-            ~has_u, has_w, (d2_u > d2_last) & has_w & (d2_w < d2_u))
-        probing = active & need_probe
-        expanding = active & ~need_probe & has_u
-        conv = active & ~has_u & ~has_w
+            # -- probe branch: exact distances for W best unprobed approx ---
+            with maybe_span(tracer, "probe.select"):
+                in_l = (pos < l[:, None]) & active[:, None]
+                win_e = in_l & (ce_ids >= 0) & ~ce_vis
+                win_a = in_l & (ca_ids >= 0) & ~ca_prb
+                has_u = win_e.any(1)
+                has_w = win_a.any(1)
+                d2_u = torch.where(win_e, ce_d2, inf).amin(1)
+                d2_w = torch.where(win_a, ca_d2, inf).amin(1)
 
-        # -- probe branch: exact distances for W best unprobed approx -------
-        sel_w, selv_w = select_top_w(ca_d2, win_a, W)
-        selv_w &= probing[:, None]
-        ca_prb = ca_prb.scatter(1, sel_w, ca_prb.gather(1, sel_w) | selv_w)
-        w_ids = torch.where(selv_w, ca_ids.gather(1, sel_w),
-                            torch.full_like(selv_w, INVALID_ID,
-                                            dtype=torch.int32))
-        d2_probe = batch_exact(queries, w_ids)                     # [B, W]
-        n_dist = n_dist + _count(w_ids >= 0)
+                # NeedProbing (lines 22-28): probe when the exact frontier
+                # stopped improving and the approx tier has something closer.
+                need_probe = torch.where(
+                    ~has_u, has_w, (d2_u > d2_last) & has_w & (d2_w < d2_u))
+                probing = active & need_probe
+                expanding = active & ~need_probe & has_u
+                conv = active & ~has_u & ~has_w
 
-        # -- expand branch: approx distances for W·M neighbor ids -----------
-        sel_u, selv_u = select_top_w(ce_d2, win_e, W)
-        selv_u &= expanding[:, None]
-        ce_vis = ce_vis.scatter(1, sel_u, ce_vis.gather(1, sel_u) | selv_u)
-        u_ids = torch.where(selv_u, ce_ids.gather(1, sel_u),
-                            torch.full_like(selv_u, INVALID_ID,
-                                            dtype=torch.int32))
-        d2_u_sel = torch.where(selv_u, ce_d2.gather(1, sel_u), -inf)
-        # "last expanded" = the worst of this hop's frontier (W=1: exactly u)
-        d2_last = torch.where(expanding, d2_u_sel.amax(1), d2_last)
+                sel_w, selv_w = select_top_w(ca_d2, win_a, W)
+                selv_w &= probing[:, None]
+                ca_prb = ca_prb.scatter(1, sel_w,
+                                        ca_prb.gather(1, sel_w) | selv_w)
+                w_ids = torch.where(selv_w, ca_ids.gather(1, sel_w),
+                                    torch.full_like(selv_w, INVALID_ID,
+                                                    dtype=torch.int32))
+            with maybe_span(tracer, "probe.exact"):
+                d2_probe = batch_exact(queries, w_ids)             # [B, W]
 
-        nbrs = neighbors[u_ids.clamp_min(0).long()]
-        nbrs = torch.where(selv_u[:, :, None], nbrs,
-                           torch.full_like(nbrs, INVALID_ID)).reshape(B, W * M)
-        fresh = (nbrs >= 0) & ~bitset_test(seen, seen_keys(nbrs, seen_base))
-        new_ids = unique_per_row(nbrs, fresh)
-        seen = bitset_set(seen, seen_keys(new_ids, seen_base))
-        d2a = batch_approx(new_ids)                                # [B, W·M]
-        n_approx = n_approx + _count(new_ids >= 0)
-        # encounters: valid neighbor ids pre-dedup, plus probed candidates
-        n_enc = n_enc + _count(nbrs >= 0) + _count(w_ids >= 0)
-        n_hops = n_hops + _count(selv_w) + _count(selv_u)
+            # -- expand branch: approx distances for W·M neighbor ids -------
+            with maybe_span(tracer, "probe.select"):
+                sel_u, selv_u = select_top_w(ce_d2, win_e, W)
+                selv_u &= expanding[:, None]
+                ce_vis = ce_vis.scatter(1, sel_u,
+                                        ce_vis.gather(1, sel_u) | selv_u)
+                u_ids = torch.where(selv_u, ce_ids.gather(1, sel_u),
+                                    torch.full_like(selv_u, INVALID_ID,
+                                                    dtype=torch.int32))
+                d2_u_sel = torch.where(selv_u, ce_d2.gather(1, sel_u), -inf)
+                # "last expanded" = the worst of this hop's frontier (W=1:
+                # exactly u)
+                d2_last = torch.where(expanding, d2_u_sel.amax(1), d2_last)
 
-        # -- merges (per query only one branch contributes real entries) ----
-        ce_ids, ce_d2, ce_vis = batch_merge_topc(
-            ce_ids, ce_d2, ce_vis, w_ids, d2_probe,
-            torch.zeros_like(selv_w), C)
-        ca_ids, ca_d2, ca_prb = batch_merge_topc(
-            ca_ids, ca_d2, ca_prb, new_ids, d2a, torch.zeros_like(fresh), C)
+            with maybe_span(tracer, "probe.dedup"):
+                nbrs = neighbors[u_ids.clamp_min(0).long()]
+                nbrs = torch.where(selv_u[:, :, None], nbrs,
+                                   torch.full_like(nbrs, INVALID_ID)
+                                   ).reshape(B, W * M)
+                fresh = (nbrs >= 0) & ~bitset_test(seen,
+                                                   seen_keys(nbrs, seen_base))
+                new_ids = unique_per_row(nbrs, fresh)
+                seen = bitset_set(seen, seen_keys(new_ids, seen_base))
+            with maybe_span(tracer, "probe.estimate"):
+                d2a = batch_approx(new_ids)                        # [B, W·M]
 
-        # -- adaptive transition for exhausted queries ----------------------
-        l, done, saturated = adaptive_transition(
-            p, ce_d2, l, done, saturated, conv)
+            # -- merges (per query only one branch contributes real entries)
+            with maybe_span(tracer, "probe.merge"):
+                ce_ids, ce_d2, ce_vis = batch_merge_topc(
+                    ce_ids, ce_d2, ce_vis, w_ids, d2_probe,
+                    torch.zeros_like(selv_w), C)
+                ca_ids, ca_d2, ca_prb = batch_merge_topc(
+                    ca_ids, ca_d2, ca_prb, new_ids, d2a,
+                    torch.zeros_like(fresh), C)
+
+            # -- adaptive transition for exhausted queries, and the counters
+            with maybe_span(tracer, "probe.transition"):
+                l, done, saturated = adaptive_transition(
+                    p, ce_d2, l, done, saturated, conv)
+                n_dist = n_dist + _count(w_ids >= 0)
+                n_approx = n_approx + _count(new_ids >= 0)
+                # encounters: valid neighbor ids pre-dedup, plus probed
+                # candidates
+                n_enc = n_enc + _count(nbrs >= 0) + _count(w_ids >= 0)
+                n_hops = n_hops + _count(selv_w) + _count(selv_u)
 
     return _BeamPState(ce_ids, ce_d2, ce_vis, ca_ids, ca_d2, ca_prb, seen,
                        d2_last, l, n_dist, n_approx, n_enc, n_hops, done,
                        saturated)
+
+
+def traced_kw(tracer: Optional[Tracer]) -> dict:
+    """The loop's ``tracer`` keyword, given only where there is a tracer:
+    an untraced call passes the loop no new keyword, so a wrapper written
+    to the loop's untraced signature (``perfbench``'s planted faults)
+    still runs."""
+    return {} if tracer is None else {"tracer": tracer}
 
 
 def make_batch_approx_fn(index: EMQGIndex, queries: torch.Tensor,
@@ -198,7 +241,7 @@ def make_batch_approx_fn(index: EMQGIndex, queries: torch.Tensor,
 def probing_search(index: EMQGIndex, queries, params: SearchParams,
                    start: Optional[torch.Tensor] = None,
                    use_kernel: bool = False, with_candidates: bool = False,
-                   backend: str = "auto"):
+                   backend: str = "auto", tracer: Optional[Tracer] = None):
     """Batched Algorithm 5 on the lock-step beam engine.
 
     ``backend`` selects both tiers' implementations: ``"jnp"`` is the plain
@@ -207,7 +250,8 @@ def probing_search(index: EMQGIndex, queries, params: SearchParams,
     ``fused_estimate``) and the plain path on the CPU (see
     ``make_batch_dist_fn`` and ``make_batch_approx_fn``).  ``use_kernel``
     routes the S₊ contraction through the bitdot kernel (its plain version
-    on a CPU tensor) whatever the backend.
+    on a CPU tensor) whatever the backend.  A ``tracer`` receives the
+    loop's spans (``_beam_probing_batch``).
     """
     g = index.graph
     queries = as_queries(queries, g.device)
@@ -218,7 +262,7 @@ def probing_search(index: EMQGIndex, queries, params: SearchParams,
     batch_approx = make_batch_approx_fn(index, queries, backend, use_kernel)
 
     st = _beam_probing_batch(g.neighbors, g.n, batch_exact, batch_approx,
-                             queries, start, params)
+                             queries, start, params, **traced_kw(tracer))
     k = params.k
     res = SearchResult(
         ids=st.ce_ids[:, :k],

@@ -273,18 +273,18 @@ def gnn_loss(cfg, edge_chunk=None):
 def ann_serve(arch, shape, sidx: ShardedIndex):
     """The serving call of ``_ann_serve_cell`` for ``arch`` (family "ann")
     at ``shape`` over the built index ``sidx``: ``run(queries [B, d],
-    stats=None) → (ids, dists) [B, k]``, the quantized probing search of
-    every shard merged by ``make_sharded_search(merge="all_gather",
-    quantized=True)`` with the arch's ``SearchParams``, on the index's
-    device (``stats``: as that search's).  The reference's cell takes
-    abstract shapes on a mesh; here the index is built and the call
-    runs."""
+    stats=None, tracer=None) → (ids, dists) [B, k]``, the quantized
+    probing search of every shard merged by
+    ``make_sharded_search(merge="all_gather", quantized=True)`` with the
+    arch's ``SearchParams``, on the index's device (``stats`` and
+    ``tracer``: as that search's).  The reference's cell takes abstract
+    shapes on a mesh; here the index is built and the call runs."""
     if arch.family != "ann" or shape.kind != "ann_serve":
         raise ValueError(f"{arch.id}/{shape.name} is not an ANN serve cell")
     run = make_sharded_search(merge="all_gather", quantized=True)
     params = arch.model_cfg["search"]
-    return lambda queries, stats=None: run(sidx, queries, params,
-                                           stats=stats)
+    return lambda queries, stats=None, tracer=None: run(
+        sidx, queries, params, stats=stats, tracer=tracer)
 
 
 def _ann_model_flops(arch, shape, sidx: ShardedIndex) -> float:

@@ -53,6 +53,50 @@ Span taxonomy: ``serve.request`` (child ``serve.queue_wait``) per request;
 ``serve.device_execute`` (children ``shard{shard,live}`` under sharded
 fan-out) and ``serve.merge``.
 
+The search and the build take ``tracer=None`` (without one they make no
+span, launch nothing more and wait for nothing):
+
+======================  ================================================
+span {attributes}       covers
+======================  ================================================
+ann.call                ``make_sharded_search``'s ``run`` (and
+  {queries,shards}      ``launch.steps.ann_serve``'s call)
+search.lockstep {rows}  ``_lockstep_search``: the stack, the query
+                        contexts, the start's distance, the loop (S·B rows)
+probe.iter              one pass of ``_beam_probing_batch``; ``active``,
+  {i,rows,active}       the rows still searching, read in the pass's one
+                        sync (the last pass reads 0 and ends the loop)
+probe.sync              the pass's host sync, first in the pass
+probe.select            NeedProbing and a branch's top-W select (twice a
+                        pass: the probe branch, then the expand branch)
+probe.exact             the exact distances of the W probed ids
+probe.dedup             neighbour gather, bitset test, per-row unique
+probe.estimate          the RaBitQ estimates (``fused_estimate``)
+probe.merge             the two ``batch_merge_topc``
+probe.transition        ``adaptive_transition`` and the counters
+search.merge            the lists' masking and the top-k merge
+build {n}               one ``build_approx`` / ``build_emqg``
+build.bootstrap         medoid and brute-force k-NN graph
+build.refine {iter}     a refinement: ``build.search`` (the beam searches)
+                        and ``build.select`` (dedup, re-rank, select) a
+                        block
+build.repair {iter}     reverse edges and connectivity (``iter`` "align"
+                        after the degree alignment)
+build.align             the degree alignment
+build.quantize          the RaBitQ codes (``build_emqg``)
+======================  ================================================
+
+A build span closes after the device is synchronised, so it holds the
+device work it enqueued; the phase events' ``elapsed_s`` is then read the
+same way (with a tracer, the spans' durations).  A search span is host
+time only.  ``make_sharded_search``'s ``stats`` dict receives
+``iterations``, the loop's passes with a row still searching (one
+``fused_estimate`` launch each on a card), a host count that costs
+nothing.  ``Tracer.n_dropped`` counts the spans the ring pushed out;
+``Tracer.anchors`` pairs ``time.perf_counter_ns()`` with ``time.time_ns()``
+(at construction and at each export), which maps spans onto a profiler's
+Unix-epoch timeline (``perfbench/pbench/spans.py``).
+
 Everything here is stdlib-only and observation-only: enabling metrics can
 not change search results (pinned bit-identical by ``tests/test_obs.py``).
 """
@@ -73,7 +117,7 @@ from .metrics import (  # noqa: F401
     MetricsRegistry,
     Timer,
 )
-from .tracing import Span, Tracer  # noqa: F401
+from .tracing import Span, Tracer, maybe_span  # noqa: F401
 
 
 def declare_serve_metrics(registry: MetricsRegistry,

@@ -26,6 +26,7 @@ listing the batch span instead, see ``ann_server.drain``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -61,14 +62,29 @@ class Span:
                 "attrs": dict(self.attrs)}
 
 
+def clock_anchor() -> tuple[int, int]:
+    """``(time.perf_counter_ns(), time.time_ns())`` read back to back: the
+    spans' monotonic clock against the Unix epoch's, which a profiler's
+    trace stamps its events with."""
+    return time.perf_counter_ns(), time.time_ns()
+
+
 class Tracer:
-    """Span factory + bounded ring of finished spans."""
+    """Span factory + bounded ring of finished spans.
+
+    ``anchors`` holds clock anchors (``clock_anchor``): one taken at
+    construction and one more each time the spans are exported
+    (``to_dicts``), so that the spans map onto another clock's timeline and
+    the drift between the two clocks shows.  ``n_dropped`` counts the
+    finished spans the ring pushed out."""
 
     def __init__(self, max_spans: int = 4096):
         self.finished: deque[Span] = deque(maxlen=max_spans)
         self._stack: list[Span] = []
         self._next_id = 1
         self.n_started = 0
+        self.n_dropped = 0
+        self.anchors: list[tuple[int, int]] = [clock_anchor()]
 
     # -- explicit API (non-lexical span lifetimes) ---------------------------
     def start_span(self, name: str, parent: Optional[Span] = None,
@@ -92,6 +108,8 @@ class Tracer:
         if span.end is None:
             span.end = end if end is not None else time.perf_counter()
             span.attrs.update(attrs)
+            if len(self.finished) == self.finished.maxlen:
+                self.n_dropped += 1
             self.finished.append(span)
         return span
 
@@ -118,7 +136,20 @@ class Tracer:
         return [s for s in self.finished if s.parent_id == span.span_id]
 
     def to_dicts(self) -> list[dict]:
+        self.anchors.append(clock_anchor())
         return [s.to_dict() for s in self.finished]
+
+
+_OFF = contextlib.nullcontext()
+
+
+def maybe_span(tracer: Optional[Tracer], name: str, **attrs):
+    """``tracer.span(name, **attrs)``, or without a tracer a null context
+    that yields None: the idiom of code that takes ``tracer=None``, which
+    then makes no span, launches nothing and waits for nothing."""
+    if tracer is None:
+        return _OFF
+    return tracer.span(name, **attrs)
 
 
 class _SpanCtx:
