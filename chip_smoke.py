@@ -73,7 +73,13 @@ non-zero and prints no result line):
                ``fused_estimate`` are also held to the bit to plain versions
                that sum and round in the kernels' order; ptxas must report
                no shared memory, no barrier and no spills for them and for
-               the L2 register kernels;
+               the L2 register kernels; ``merge_topc`` (the search loops'
+               merge of a sorted top-C buffer, in place) bit for bit against
+               its plain version at the probing loop's pass, [40000, 513]
+               with K 1 and K 64, and at the build's searches, [32768,
+               1001] with K 64, ``MERGE_ACTIVE`` of the rows taking new
+               entries, each timed merge on an untouched copy of its
+               buffer;
 3. serve    — the port's ``launch.serve`` path: ``build_emqg`` on the card
                and ``AnnServer.drain`` over 512 queries; the served
                distances are the exact ones, the ids those of the plain
@@ -348,6 +354,7 @@ import argparse
 import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
 import threading
@@ -675,6 +682,17 @@ ESTIMATE_TABLES = 8            # distinct 1M-row code tables the timing cycles
 # a capture of every set was thousands of Python calls (the d = 65
 # estimate row's 13.5 s, most of it the plain version's)
 PLAIN_SETS = 64
+# (B, C, Ks, path) of the merge_topc rows: the probing loop's pass at
+# l_max 512 (its two merges: the exact tier's K = W = 1 and the approximate
+# tier's K = W·M = 64) over the benchmark's 40,000-query batch, and the
+# build's searches at L 1,000 over its 32,768-row block
+MERGE_CASES = ((40_000, 513, (1, 64), "sift1m_serve_batch"),
+               (32_768, 1001, (64,), "sift1m_build"))
+# share of a merge's rows that take new entries: the probing loop's rows
+# still searching in the benchmark's cell (PERF.md §5); the others' new
+# entries are all +inf, as a finished row's are
+MERGE_ACTIVE = 0.166
+MERGE_SETS = 2                 # buffers merged in a timed graph (185 MB each)
 # the kernels line: (kernel, path) of each row, which reports the kernel at
 # that path's shape and its launches there
 REPORTED = (("gather_l2_tiled", "drain"), ("gather_l2_tiled", "build"),
@@ -691,6 +709,7 @@ REPORTED = (("gather_l2_tiled", "drain"), ("gather_l2_tiled", "build"),
             ("batched_l2", "sift1m_build"), ("batched_l2", "sift1m_align"),
             ("fused_estimate", "sift1m_serve_online"),
             ("fused_estimate", "sift1m_serve_batch"),
+            ("merge_topc", "sift1m_serve_batch"), ("merge_topc", "sift1m_build"),
             ("flash_attention", "lm_prefill"),
             ("flash_attention", "moe_prefill"), ("flash_attention", "train"),
             ("flash_attention_bwd", "train"))
@@ -726,9 +745,10 @@ def _launch_counters() -> tuple:
     from repro_torch.kernels.bitdot import ops as bitdot_ops
     from repro_torch.kernels.flashattn import ops as flash_ops
     from repro_torch.kernels.l2dist import ops as l2ops
+    from repro_torch.kernels.topc import ops as topc_ops
 
     return (l2ops.LAUNCHES, l2ops.KERNEL_LAUNCHES, bitdot_ops.LAUNCHES,
-            flash_ops.LAUNCHES)
+            flash_ops.LAUNCHES, topc_ops.LAUNCHES)
 
 
 def kernel_counts() -> dict:
@@ -925,6 +945,7 @@ def kernel_phase(torch, card: str):
     torch.cuda.empty_cache()
     rows.update(estimate_rows(torch, g, n))
     rows.update(batched_l2_rows(torch, g))
+    rows.update(merge_rows(torch, g))
     for r in rows.values():
         lib = r["library_ms"]
         print(f"[kernel] {r['name']} {r['shape']} ({r['path']}; "
@@ -1177,6 +1198,132 @@ def batched_l2_rows(torch, g) -> dict:
     return rows
 
 
+def merge_inputs(torch, g, B: int, C: int, K: int):
+    """One merge's inputs at a path's shape, as the search loops hold them:
+    a buffer ascending in d2, its first 64 to C entries finite and the rest
+    +inf pads, ids and flags random; new entries [B, K] in
+    the ``MERGE_ACTIVE`` share of the rows, a third of them +inf (ids the
+    dedup dropped), all +inf in the other rows."""
+    dev = torch.device("cuda")
+    d2 = torch.rand((B, C), generator=g, device=dev)
+    fill = torch.randint(64, C + 1, (B, 1), generator=g, device=dev)
+    d2 = torch.where(torch.arange(C, device=dev) < fill, d2, float("inf"))
+    d2 = torch.sort(d2, dim=1, stable=True).values
+    ids = torch.randint(0, 2**30, (B, C), generator=g, device=dev,
+                        dtype=torch.int32)
+    vis = torch.rand((B, C), generator=g, device=dev) < 0.5
+    active = torch.rand((B, 1), generator=g, device=dev) < MERGE_ACTIVE
+    d2_b = torch.rand((B, K), generator=g, device=dev)
+    d2_b[(torch.rand((B, K), generator=g, device=dev) < 1 / 3) | ~active] = \
+        float("inf")
+    ids_b = torch.randint(0, 2**30, (B, K), generator=g, device=dev,
+                          dtype=torch.int32)
+    return ids, d2, vis, ids_b, d2_b, torch.zeros_like(ids_b,
+                                                       dtype=torch.bool)
+
+
+def merge_bytes(torch, inputs) -> float:
+    """The bytes a merge must move: every row's K new keys and its buffer's
+    last key read; in a row that takes new entries, each of the C − p0
+    places from its first changed position p0 on written, and what fills
+    it (a buffer entry or a new one) read: id, d2 and flag, 9 bytes each."""
+    d2, d2_b = inputs[1], inputs[4]
+    B, C = d2.shape
+    K = d2_b.shape[1]
+    least = d2_b.min(1, keepdim=True).values
+    active = least[:, 0] < d2[:, -1]
+    p0 = torch.searchsorted(d2, least, right=True)[:, 0]
+    return float(B * (4 * K + 4) + 18 * int(((C - p0) * active).sum()))
+
+
+def merge_rows(torch, g) -> dict:
+    """merge_topc at ``MERGE_CASES``' shapes, a row a path: the pass's merges
+    (one per K) held to the plain version to the bit, the buffer updated in
+    place, then timed with CUDA events over a graph of ``MERGE_SETS``
+    passes, each on a fresh copy of its untouched buffers (the copies stay
+    out of the time); the plain version (which allocates its output) over
+    the same sets."""
+    from repro_torch.kernels.topc import ops as topc_ops
+    from repro_torch.kernels.topc import ref as topc_ref
+
+    rows = {}
+    for B, C, Ks, path in MERGE_CASES:
+        t_row = time.perf_counter()
+        src = [[merge_inputs(torch, g, B, C, K) for K in Ks]
+               for _ in range(MERGE_SETS)]
+        work = [[tuple(t.clone() for t in m) for m in pas] for pas in src]
+        for pas, wpas in zip(src, work):
+            for m, w in zip(pas, wpas):
+                want = topc_ref.merge_topc_ref(*m, C)
+                got = topc_ops.merge_topc(*w, C)
+                check(all(a is b for a, b in zip(got, w[:3])),
+                      f"merge_topc [{B},{C}] did not return its buffer")
+                check(torch.equal(got[0], want[0])
+                      and torch.equal(got[1].view(torch.int32),
+                                      want[1].view(torch.int32))
+                      and torch.equal(got[2], want[2]),
+                      f"merge_topc [{B},{C}] K={m[3].shape[1]} differs from "
+                      "its plain version")
+
+        def restore():
+            for pas, wpas in zip(src, work):
+                for m, w in zip(pas, wpas):
+                    for a, b in zip(w[:3], m[:3]):
+                        a.copy_(b)
+
+        def merge_all():
+            for wpas in work:
+                for w in wpas:
+                    topc_ops.merge_topc(*w, C)
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        restore()
+        with torch.cuda.stream(side):
+            merge_all()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            merge_all()
+        times = []
+        for _ in range(5):
+            restore()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / MERGE_SETS)
+        ms = statistics.median(times)
+        plain_ms = device_ms(torch, lambda s: [
+            topc_ref.merge_topc_ref(*m, C) for m in src[s]], reps=5,
+            sets=MERGE_SETS)
+        restore()
+        call = (host_us(torch, lambda: [topc_ops.merge_topc(*w, C)
+                                        for w in work[0]], calls=100),
+                host_us(torch, lambda: [topc_ref.merge_topc_ref(*m, C)
+                                        for m in src[0]], calls=20))
+        nbytes = sum(merge_bytes(torch, m) for m in src[0])
+        bound_ms, bound_by = bound(nbytes, 0)
+        footprint = sum(t.numel() * t.element_size() for pas in src
+                        for m in pas for t in m)
+        rows[("merge_topc", path)] = dict(
+            name="merge_topc", route="cuda",
+            source="src/repro_torch/kernels/csrc/merge_topc.cu",
+            replaces="none: lax.top_k over the concatenation, "
+                     "src/repro/core/search.py:125", path=path,
+            shape=f"buffer[{B},{C}] K={'+'.join(map(str, Ks))}",
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None, timed_sets=MERGE_SETS,
+            plain_sets=MERGE_SETS, timed_mb=footprint / 1e6,
+            call_us=call[0], plain_call_us=call[1],
+            row_s=time.perf_counter() - t_row)
+        del src, work, graph
+    torch.cuda.empty_cache()
+    return rows
+
+
 def serve_phase(torch, n: int, card: str):
     from repro_torch.core import BuildParams, SearchParams, build_emqg
     from repro_torch.core import probing_search
@@ -1326,8 +1473,11 @@ def ags_certify_filtered_phase(torch, idx, vq, card: str,
                                              delta=0.05, backend=backend)
         torch.cuda.synchronize()
         counts[f"certify_{backend}"] = kernel_counts()
+    # the plain path's distances launch nothing; the buffer's merge is the
+    # kernel on the card whatever the backend (the plain merge's bits)
     check(counts["certify_auto"]["gather_l2_tiled"] > 0
-          and not any(counts["certify_jnp"].values()),
+          and not any(v for k, v in counts["certify_jnp"].items()
+                      if k != "merge_topc"),
           "the certificate's kernels and plain paths ran the wrong code")
     found, dp = cert["auto"]
     share = float((found == cert["jnp"][0]).float().mean())
@@ -1645,6 +1795,14 @@ def sift1m_phase(torch, card: str, counts: dict) -> dict:
         counts[path] = kernel_counts()
         for kernel in ("gather_l2_tiled", "fused_estimate"):
             check(counts[path][kernel] > 0, f"{path} never launched {kernel}")
+        # the probing loop merges twice a pass: its exact and its
+        # approximate tier
+        merges = counts[path]["merge_topc"]
+        check(merges == 2 * stats["iterations"],
+              f"{path}: {merges} merge_topc launches, not twice the "
+              f"{stats['iterations']} passes")
+        print(f"[sift1m] {name}: merge_topc launches {merges}, 2 × "
+              f"iterations {2 * stats['iterations']} ({card})")
         check(tuple(ids.shape) == (B, sp.k) and bool((ids >= 0).all())
               and bool(torch.isfinite(dists).all()),
               f"{path}: results are not {B} × {sp.k} valid ids and finite "

@@ -114,6 +114,11 @@ def _beam_probing_batch(neighbors: torch.Tensor, n_nodes: int,
     n_hops = torch.zeros(B, **i32)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     saturated = torch.zeros(B, dtype=torch.bool, device=dev)
+    # the flags the merges give their new entries, made once: the probed
+    # ids enter the exact tier unexpanded, the estimates the approximate
+    # tier unprobed
+    unexpanded_w = torch.zeros((B, W), dtype=torch.bool, device=dev)
+    unprobed_wm = torch.zeros((B, W * M), dtype=torch.bool, device=dev)
 
     for i in itertools.count():
         with maybe_span(tracer, "probe.iter", i=i, rows=B) as pass_span:
@@ -186,11 +191,9 @@ def _beam_probing_batch(neighbors: torch.Tensor, n_nodes: int,
             # -- merges (per query only one branch contributes real entries)
             with maybe_span(tracer, "probe.merge"):
                 ce_ids, ce_d2, ce_vis = batch_merge_topc(
-                    ce_ids, ce_d2, ce_vis, w_ids, d2_probe,
-                    torch.zeros_like(selv_w), C)
+                    ce_ids, ce_d2, ce_vis, w_ids, d2_probe, unexpanded_w, C)
                 ca_ids, ca_d2, ca_prb = batch_merge_topc(
-                    ca_ids, ca_d2, ca_prb, new_ids, d2a,
-                    torch.zeros_like(fresh), C)
+                    ca_ids, ca_d2, ca_prb, new_ids, d2a, unprobed_wm, C)
 
             # -- adaptive transition for exhausted queries, and the counters
             with maybe_span(tracer, "probe.transition"):

@@ -29,6 +29,8 @@ import torch
 
 from ..kernels.l2dist import ops as l2ops
 from ..kernels.l2dist import ref as l2ref
+from ..kernels.topc import ops as topc_ops
+from ..kernels.topc import ref as topc_ref
 from .bitset import (
     bitset_clear,
     bitset_make,
@@ -86,22 +88,19 @@ def make_batch_dist_fn(vectors: torch.Tensor, backend: str = "auto"
     return lambda queries, ids: fn(vectors, ids, queries)
 
 
-def _cat_sort(parts_ids, parts_d2, parts_vis, cap: int):
-    """Concatenate along the row and keep the ``cap`` smallest d2, stably."""
-    ids = torch.cat(parts_ids, dim=1)
-    d2 = torch.cat(parts_d2, dim=1)
-    vis = torch.cat(parts_vis, dim=1)
-    d2_s, idx = stable_topk_smallest(d2, cap)
-    return ids.gather(1, idx), d2_s, vis.gather(1, idx)
-
-
 def batch_merge_topc(ids_a, d2_a, vis_a, ids_b, d2_b, vis_b, cap: int):
-    """Batched merge: [B, Ca] ⊎ [B, Cb] → top-``cap`` smallest d2 per row.
+    """Batched merge: buffer [B, C] ⊎ new entries [B, K] → the C = ``cap``
+    smallest d2 per row, as a stable sort of the concatenation gives them:
+    ties go to the buffer, so a no-op merge keeps the buffer's order, which
+    keeps masked queries frozen.
 
-    The sort is stable, so appending the new entries after the buffer keeps
-    the buffer's order for no-op merges — which keeps masked queries frozen.
+    The buffer must already be ascending (it is the previous merge's
+    output).  On a CUDA tensor the kernel ``kernels.topc.ops.merge_topc``
+    updates it in place and returns it, so the caller rebinds the result
+    and nothing else may alias the buffer; on a CPU tensor the plain
+    version returns new tensors.
     """
-    return _cat_sort((ids_a, ids_b), (d2_a, d2_b), (vis_a, vis_b), cap)
+    return topc_ops.merge_topc(ids_a, d2_a, vis_a, ids_b, d2_b, vis_b, cap)
 
 
 class _BeamState(NamedTuple):
@@ -171,9 +170,9 @@ def faithful_prune_merge(cand_ids, cand_d2, cand_vis, new_ids, d2_new,
     columns; ``seen`` is updated in place.
     """
     width = cand_ids.shape[1] + new_ids.shape[1]
-    ids_s, d2_s, vis_s = _cat_sort(
-        (cand_ids, new_ids), (cand_d2, d2_new),
-        (cand_vis, torch.zeros_like(new_ids, dtype=torch.bool)), width)
+    ids_s, d2_s, vis_s = topc_ref.merge_topc_ref(
+        cand_ids, cand_d2, cand_vis, new_ids, d2_new,
+        torch.zeros_like(new_ids, dtype=torch.bool), width)
     pos = torch.arange(width, device=ids_s.device)[None, :]
     keep = pos <= l[:, None]
     invalid = torch.full_like(ids_s, INVALID_ID)
@@ -231,6 +230,7 @@ def _beam_search_batch(graph: GraphIndex, queries: torch.Tensor,
     n_hops = torch.zeros(B, **i32)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     saturated = torch.zeros(B, dtype=torch.bool, device=dev)
+    unvisited = torch.zeros((B, W * M), dtype=torch.bool, device=dev)
 
     while True:
         active = ~done & (n_hops < p.max_hops)
@@ -267,8 +267,7 @@ def _beam_search_batch(graph: GraphIndex, queries: torch.Tensor,
                 seen_base)
         else:
             cand_ids, cand_d2, cand_vis = batch_merge_topc(
-                cand_ids, cand_d2, cand_vis, new_ids, d2_new,
-                torch.zeros_like(fresh), C)
+                cand_ids, cand_d2, cand_vis, new_ids, d2_new, unvisited, C)
 
         # -- adaptive transition for window-exhausted queries ---------------
         conv = active & ~has_frontier

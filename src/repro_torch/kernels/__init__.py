@@ -15,6 +15,9 @@ attention (``sm_90a``).
                cores from ``csrc/flash_attn_sm90.cu`` (wgmma, TMA; its
                PTX wrappers in ``csrc/sm90_ptx.cuh``), float32 on the CUDA
                cores from ``csrc/flash_attn.cu``
+    topc/    — the merge of a sorted top-C candidate buffer with a pass's
+               new entries, in place (the search loops'
+               ``batch_merge_topc``), from ``csrc/merge_topc.cu``
 
 Each has ``ops.py`` (the wrapper: checks, launch count, CUDA launch or the
 plain version on a CPU tensor) and ``ref.py`` (the plain PyTorch version).

@@ -27,17 +27,17 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("gather_l2", "bitdot", "fused_estimate", "batched_l2",
            "flash_attn", "flash_attn_sm90", "flash_attn_bwd_sm90",
-           "flash_attn_bwd_f32")
+           "flash_attn_bwd_f32", "merge_topc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # flags of one source only: ptxas reports the registers, spills and shared
 # memory of the tensor-core kernels (and any serialised wgmma), of the
-# float32 attention backward, of the L2 kernels and of the RaBitQ kernels
-# into their build logs
+# float32 attention backward, of the L2 kernels, of the RaBitQ kernels and
+# of the merge into their build logs
 EXTRA_FLAGS = {name: ("-Xptxas=-v",)
                for name in ("flash_attn_sm90", "flash_attn_bwd_sm90",
                             "flash_attn_bwd_f32", "gather_l2", "batched_l2",
-                            "bitdot", "fused_estimate")}
+                            "bitdot", "fused_estimate", "merge_topc")}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _LIBS: dict[str, ctypes.CDLL] = {}

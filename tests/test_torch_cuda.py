@@ -49,10 +49,13 @@ card agrees with the edge list in one piece (loss and gradients to 1e-5,
 a gradient leaf's of its own norm or of a floor), ``CSRGraph.from_edges``
 sorted on the card gives numpy's stable order,
 and a chunked GAT step, like a recsys arch's step, is bitwise repeatable
-under ``torch.use_deterministic_algorithms``.
+under ``torch.use_deterministic_algorithms``.  The top-C merge kernel
+gives the card's stable sort of the concatenation to the bit (ids, d2
+bits, flags), and the search loops with it the plain merge's results.
 """
 
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -70,6 +73,8 @@ from repro_torch.kernels.flashattn import ops as flash_ops
 from repro_torch.kernels.flashattn import ref as flash_ref
 from repro_torch.kernels.l2dist import ops as l2ops
 from repro_torch.kernels.l2dist import ref as l2ref
+from repro_torch.kernels.topc import ops as topc_ops
+from repro_torch.kernels.topc import ref as topc_ref
 from repro_torch.configs import get_arch
 from repro_torch.models import common
 from repro_torch.models import moe
@@ -85,6 +90,10 @@ from repro_torch.serve import ShardedResilientAnnServer
 from repro_torch.serve import generate
 from repro_torch.testing import (FaultPlan, indexes_equal,
                                  inject_search_faults)
+
+# the modules, not the functions that repro_torch.core exports
+search_mod = importlib.import_module("repro_torch.core.search")
+probing_mod = importlib.import_module("repro_torch.core.probing")
 
 # the build's [block, M] at d = 128 and MIPS's ragged d + 1 = 129, cut in B
 L2_SHAPES = [(2, 16, 24), (4, 32, 128), (1, 7, 65), (8, 24, 128), (2, 24, 129)]
@@ -612,6 +621,133 @@ def test_estimate_sqdist_raises_if_the_kernel_cannot_launch(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="fused_estimate"):
         rabitq.estimate_sqdist(rq, ctx, ids)
     assert bitdot_ops.LAUNCHES["fused_estimate"] == before
+
+
+# (C, K) of the top-C merge: the probing loop's exact and approximate
+# tiers at l_max 512, the build's searches at L 1,000, a small row, K > C,
+# and a row of C + K = 129
+MERGE_SHAPES = [(513, 1), (513, 64), (1001, 64), (7, 3), (5, 20), (100, 29)]
+
+
+def _merge_inputs(B, C, K, seed, device, nan=False):
+    """A buffer sorted by the card's own stable sort and new entries, with
+    ties across and within them, -0.0 and +0.0, +inf pads, rows that take
+    nothing (row % 4 == 1), rows whose every new entry beats the buffer
+    (row % 4 == 2) and rows whose buffer is half +inf (row % 4 == 3); with
+    ``nan``, NaNs of both signs among them."""
+    rng = np.random.default_rng(seed)
+    values = [-0.0, 0.0, 0.25, 0.5, 1.0, 1.5, 2.0, np.inf, -np.inf]
+    if nan:
+        values += [np.nan, -np.nan]
+    grid = np.array(values, dtype=np.float32)
+    raw_a = rng.choice(grid, (B, C))
+    raw_a[3::4, C // 2:] = np.inf
+    d2_b = rng.choice(grid, (B, K))
+    d2_b[2::4] = -1.0 - rng.random((len(d2_b[2::4]), K))
+    d2_a = torch.sort(torch.from_numpy(raw_a).to(device), dim=1,
+                      stable=True).values
+    last = d2_a[1::4, -1:].cpu().numpy()
+    d2_b[1::4] = np.where(np.isnan(d2_b[1::4]), d2_b[1::4],
+                          np.maximum(d2_b[1::4], last))
+    ids_a = rng.permutation(B * C).reshape(B, C).astype(np.int32)
+    ids_b = (B * C + rng.permutation(B * K)).reshape(B, K).astype(np.int32)
+    t = [torch.from_numpy(x).to(device) for x in
+         (ids_a, rng.random((B, C)) < 0.5, ids_b, d2_b.astype(np.float32),
+          rng.random((B, K)) < 0.5)]
+    return t[0], d2_a, t[1], t[2], t[3], t[4]
+
+
+def _assert_merge_equal(got, want):
+    ids, d2, vis = got
+    assert torch.equal(ids, want[0])
+    assert torch.equal(d2.view(torch.int32), want[1].view(torch.int32))
+    assert torch.equal(vis, want[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,K", MERGE_SHAPES)
+def test_merge_topc_equals_the_plain_merge_to_the_bit(cuda, C, K):
+    """ids, the bits of d2 (-0.0 against +0.0 too) and flags equal to the
+    stable sort of the concatenation on the card; the buffer is updated in
+    place."""
+    inputs = _merge_inputs(256, C, K, C * 100 + K, cuda)
+    want = topc_ref.merge_topc_ref(*inputs, C)
+    before = topc_ops.LAUNCHES["merge_topc"]
+    got = topc_ops.merge_topc(*inputs, C)
+    torch.cuda.synchronize()
+    assert topc_ops.LAUNCHES["merge_topc"] == before + 1
+    assert all(g is a for g, a in zip(got, inputs[:3]))
+    _assert_merge_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,K", [(513, 64), (7, 3)])
+def test_merge_topc_puts_nan_where_the_card_sort_does(cuda, C, K):
+    """NaNs of both signs: a negative NaN before -inf, a positive one after
+    +inf, as the card's sort puts them at every row width."""
+    inputs = _merge_inputs(256, C, K, 11, cuda, nan=True)
+    want = topc_ref.merge_topc_ref(*inputs, C)
+    _assert_merge_equal(topc_ops.merge_topc(*inputs, C), want)
+
+
+@pytest.mark.cuda
+def test_merge_topc_raises_if_the_kernel_cannot_launch(cuda, monkeypatch):
+    """A refused launch raises; nothing falls back to the plain version."""
+    inputs = _merge_inputs(8, 33, 4, 0, cuda)
+
+    class Refused:
+        @staticmethod
+        def merge_topc(*args):
+            return 9                    # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(_build, "load", lambda name: Refused())
+    before = topc_ops.LAUNCHES["merge_topc"]
+    with pytest.raises(RuntimeError, match="merge_topc"):
+        topc_ops.merge_topc(*inputs, 33)
+    assert topc_ops.LAUNCHES["merge_topc"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam_width", [1, 4])
+def test_search_loops_on_card_merge_as_the_plain_merge(card_emqg, monkeypatch,
+                                                       beam_width):
+    """probing_search and search with the merge kernel give the ids and d2
+    bits of the same loops with the plain merge; a probing pass merges
+    twice (one fused_estimate a pass), a beam pass once (one gather_l2_tiled
+    a pass after the start's)."""
+    idx, _ = card_emqg
+    queries = clustered_vectors(200, 32, 16, seed=1)
+    p = SearchParams(k=10, l0=10, l_max=64, alpha=1.2, adaptive=True,
+                     max_hops=512, beam_width=beam_width)
+    runs = {}
+    for merge in ("kernel", "plain"):
+        if merge == "plain":
+            for mod in (search_mod, probing_mod):
+                monkeypatch.setattr(mod, "batch_merge_topc",
+                                    topc_ref.merge_topc_ref)
+        before = dict(topc_ops.LAUNCHES, **bitdot_ops.LAUNCHES,
+                      **l2ops.LAUNCHES)
+        probe = probing_search(idx, queries, p)
+        mid = dict(topc_ops.LAUNCHES, **bitdot_ops.LAUNCHES, **l2ops.LAUNCHES)
+        beam = search(idx.graph, queries, p)
+        after = dict(topc_ops.LAUNCHES, **bitdot_ops.LAUNCHES,
+                     **l2ops.LAUNCHES)
+        torch.cuda.synchronize()
+        runs[merge] = (probe, beam)
+        merges = (mid["merge_topc"] - before["merge_topc"],
+                  after["merge_topc"] - mid["merge_topc"])
+        if merge == "kernel":
+            assert merges == (
+                2 * (mid["fused_estimate"] - before["fused_estimate"]),
+                after["gather_l2_tiled"] - mid["gather_l2_tiled"] - 1)
+            assert merges[0] > 0 and merges[1] > 0
+        else:
+            assert merges == (0, 0)
+    for got, want in zip(runs["kernel"], runs["plain"]):
+        assert torch.equal(got.ids, want.ids)
+        assert torch.equal(got.dists.view(torch.int32),
+                           want.dists.view(torch.int32))
+        assert torch.equal(got.n_hops, want.n_hops)
 
 
 @pytest.mark.cuda

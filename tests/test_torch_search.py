@@ -11,6 +11,8 @@ Alg.-2 build, filtered search and MIPS search are held to the reference on
 the same inputs.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -401,3 +403,126 @@ def test_mips_recall_at_scale_is_the_reference_level():
 
     assert recall(t.ids.numpy()) == recall(np.asarray(r.ids))
 
+
+
+# -- the top-C merge (kernels/topc): its plain version and the wrapper ------
+
+def _np_stable_merge(ids_a, d2_a, vis_a, ids_b, d2_b, vis_b, cap):
+    """Row by row: the new entries sorted stably, then a two-pointer merge
+    that takes the buffer's entry on a tie; the first ``cap`` kept."""
+    out = []
+    for row in range(d2_a.shape[0]):
+        order = np.argsort(d2_b[row], kind="stable")
+        a = list(zip(d2_a[row], ids_a[row], vis_a[row]))
+        b = [(d2_b[row][j], ids_b[row][j], vis_b[row][j]) for j in order]
+        i = j = 0
+        merged = []
+        while len(merged) < cap and (i < len(a) or j < len(b)):
+            if j == len(b) or (i < len(a) and a[i][0] <= b[j][0]):
+                merged.append(a[i])
+                i += 1
+            else:
+                merged.append(b[j])
+                j += 1
+        out.append(merged)
+    d2, ids, vis = (np.array([[e[f] for e in r] for r in out])
+                    for f in range(3))
+    return ids, d2, vis
+
+
+def _merge_inputs(B, C, K, seed):
+    """A sorted buffer and new entries with ties across and within them,
+    ±0.0, +inf pads, rows that take nothing and rows whose every new entry
+    beats the buffer."""
+    rng = np.random.default_rng(seed)
+    grid = np.array([-0.0, 0.0, 0.25, 0.5, 1.0, 1.5, 2.0, np.inf],
+                    dtype=np.float32)
+    d2_a = np.sort(rng.choice(grid, (B, C)), axis=1, kind="stable")
+    d2_b = rng.choice(grid, (B, K)).astype(np.float32)
+    d2_b[1::4] = np.maximum(d2_b[1::4], d2_a[1::4, -1:])   # nothing enters
+    d2_b[2::4] = -1.0 - rng.random((len(d2_b[2::4]), K))   # all beat it
+    ids_a = rng.permutation(B * C).reshape(B, C).astype(np.int32)
+    ids_b = (B * C + rng.permutation(B * K)).reshape(B, K).astype(np.int32)
+    vis_a = rng.random((B, C)) < 0.5
+    vis_b = rng.random((B, K)) < 0.5
+    return ids_a, d2_a, vis_a, ids_b, d2_b, vis_b
+
+
+MERGE_CASES = [(7, 3, 0), (5, 20, 1), (33, 1, 2), (64, 64, 3), (129, 64, 4),
+               (513, 1, 5), (513, 64, 6)]
+
+
+@pytest.mark.parametrize("C,K,seed", MERGE_CASES)
+def test_merge_topc_ref_is_a_stable_merge(C, K, seed):
+    from repro_torch.kernels.topc import ref as topc_ref
+
+    arrays = _merge_inputs(12, C, K, seed)
+    got = topc_ref.merge_topc_ref(*(torch.from_numpy(x) for x in arrays), C)
+    want = _np_stable_merge(*arrays, C)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_merge_topc_on_cpu_runs_the_plain_version():
+    from repro_torch.kernels.topc import ops as topc_ops
+    from repro_torch.kernels.topc import ref as topc_ref
+
+    inputs = [torch.from_numpy(x) for x in _merge_inputs(12, 33, 8, 7)]
+    before = topc_ops.LAUNCHES["merge_topc"]
+    got = topc_ops.merge_topc(*inputs, 33)
+    assert topc_ops.LAUNCHES["merge_topc"] == before
+    for g, w in zip(got, topc_ref.merge_topc_ref(*inputs, 33)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("fault", ["cap", "ids_int64", "d2_float64",
+                                   "vis_uint8", "rows", "widths"])
+def test_merge_topc_refuses_what_the_kernel_does_not_take(fault):
+    from repro_torch.kernels.topc import ops as topc_ops
+
+    args = [torch.from_numpy(x) for x in _merge_inputs(4, 9, 3, 8)]
+    cap = 9
+    if fault == "cap":
+        cap = 8
+    elif fault == "ids_int64":
+        args[3] = args[3].long()
+    elif fault == "d2_float64":
+        args[1] = args[1].double()
+    elif fault == "vis_uint8":
+        args[5] = args[5].to(torch.uint8)
+    elif fault == "rows":
+        args[4] = args[4][:3]
+    else:
+        args[2] = args[2][:, :8]
+    with pytest.raises((TypeError, ValueError)):
+        topc_ops.merge_topc(*args, cap)
+
+
+@pytest.mark.parametrize("engine,beam_width", [("probing", 1), ("probing", 4),
+                                               ("beam", 1), ("beam", 4)])
+def test_the_loops_merge_into_a_sorted_buffer(approx, monkeypatch, engine,
+                                              beam_width):
+    """The kernel's precondition: at every merge the buffer is ascending,
+    its width is ``cap``, and the new entries are contiguous (the kernel
+    takes them as they are)."""
+    # the modules, not the functions that repro_torch.core exports
+    search_mod = importlib.import_module("repro_torch.core.search")
+    probing_mod = importlib.import_module("repro_torch.core.probing")
+    calls = []
+
+    def checked(ids_a, d2_a, vis_a, ids_b, d2_b, vis_b, cap):
+        calls.append(cap)
+        assert d2_a.shape[1] == cap
+        assert bool((d2_a[:, 1:] >= d2_a[:, :-1]).all())
+        assert all(t.is_contiguous() for t in (ids_b, d2_b, vis_b))
+        return merge(ids_a, d2_a, vis_a, ids_b, d2_b, vis_b, cap)
+
+    merge = search_mod.batch_merge_topc
+    monkeypatch.setattr(search_mod, "batch_merge_topc", checked)
+    monkeypatch.setattr(probing_mod, "batch_merge_topc", checked)
+    _, tp = params(beam_width=beam_width)
+    if engine == "probing":
+        probing_search(approx["port"], approx["queries"], tp)
+    else:
+        search(approx["port"].graph, approx["queries"], tp)
+    assert len(calls) > 2
