@@ -197,6 +197,16 @@ non-zero and prints no result line):
                the exact ``search`` on the same graph with the same
                parameters (the graph's recall without the RaBitQ
                estimate);
+12c. d960   — GIST1M's width: sift1m's build and search at d = 960 over
+               a corpus of the benchmark's synth-d960 law (48 clusters
+               near 21-dimensional subspaces), n 16,384, block 8,192 (paths
+               ``d960_build``, ``d960_align``: batched_l2 and the build's
+               gathers all on the block kernels), one ``ann_serve`` call of
+               40,000 queries (``d960_serve_batch``: one launch a pass of
+               fused_estimate's 4-chunk instance, W = 30, counted by
+               ``bitdot.ops.CHUNK_LAUNCHES``; the exact tier on
+               ``gather_l2_blocks``), recall@10 and the build's memory
+               peak;
 13. recsys  — FM, DCN-v2, DIEN and MIND at their published widths in f32
                (weights from a seeded generator, one arch's tables on the
                card at a time: 3.60, 3.50, 0.30 and 2.15 GB): each served
@@ -395,6 +405,17 @@ SIFT_ARCH = "sift1m"           # the paper's own configuration (configs/sift1m.p
 SIFT_N = 16_384
 SIFT_BLOCK = 16_384            # BuildParams.block raised from 512: fewer host hops
 SIFT_SEEDS = (9, 10)           # corpus, queries
+# GIST1M's width (the benchmark's synth-d960.batch cell): sift1m's build and
+# search at d = 960 on a corpus of the cell's law (48 clusters near
+# 21-dimensional subspaces), n cut to D960_N, the cell's block (the largest
+# power of two whose build fits the card at d = 960) and its 40,000-query
+# call; the paths d960_build, d960_align and d960_serve_batch
+D960_DIM = 960
+D960_N = 16_384
+D960_BLOCK = 8_192
+D960_BATCH = 40_000
+D960_LAW = dict(clusters=48, rank=21, center_std=0.12, noise=0.05)
+D960_SEED = 31
 BOUND_QUERIES = 128            # off-corpus queries of the exact build's W = 4 bound
 BOUND_ENGINES = ("beam", "faithful", "probing", "ags")
 # the four port examples, each in-process through its main(argv); the two
@@ -665,6 +686,10 @@ GATHER_CASES = (
     ("gather_l2_tiled", 64, 1, 65, "recsys_retrieval"),
     # sift1m's build searches at M = 64 over its block (beam width 1)
     ("gather_l2_tiled", SIFT_BLOCK, 64, 128, "sift1m_build"),
+    # d = 960 past the register kernels: the probing loop's exact tier over
+    # the cell's call and the build's searches over its block
+    ("gather_l2_tiled", D960_BATCH, 1, D960_DIM, "d960_serve_batch"),
+    ("gather_l2_tiled", D960_BLOCK, 64, D960_DIM, "d960_build"),
 )
 # (B, K = W·M, path) of the bitdot launch: the expand branch's estimates
 BITDOT_CASES = ((128, 24, "probe"), (128, 96, "W=4, no path here"))
@@ -675,7 +700,10 @@ ESTIMATE_CASES = ((128, 24, 4, 128, "drain"), (128, 24, 5, 129, "mips"),
                   (64, 24, 3, 65, "recsys_retrieval"),
                   # sift1m's two serve shapes at M = 64
                   (256, 64, 4, 128, "sift1m_serve_online"),
-                  (4096, 64, 4, 128, "sift1m_serve_batch"))
+                  (4096, 64, 4, 128, "sift1m_serve_batch"),
+                  # W = 30 (three full chunks and a last of 6) over the
+                  # d = 960 cell's call
+                  (D960_BATCH, 64, 30, D960_DIM, "d960_serve_batch"))
 ESTIMATE_TABLES = 8            # distinct 1M-row code tables the timing cycles
 # input sets the plain versions are timed over (the kernels over every
 # set): the plain time is a column, no yardstick, and at the small shapes
@@ -710,6 +738,10 @@ REPORTED = (("gather_l2_tiled", "drain"), ("gather_l2_tiled", "build"),
             ("fused_estimate", "sift1m_serve_online"),
             ("fused_estimate", "sift1m_serve_batch"),
             ("merge_topc", "sift1m_serve_batch"), ("merge_topc", "sift1m_build"),
+            ("gather_l2_tiled", "d960_serve_batch"),
+            ("gather_l2_tiled", "d960_build"),
+            ("fused_estimate", "d960_serve_batch"),
+            ("batched_l2", "d960_build"), ("batched_l2", "d960_align"),
             ("flash_attention", "lm_prefill"),
             ("flash_attention", "moe_prefill"), ("flash_attention", "train"),
             ("flash_attention_bwd", "train"))
@@ -738,6 +770,9 @@ def batched_cases() -> tuple:
             # degree alignment's search for t (the same build's launches)
             (SIFT_BLOCK, M, 128, "sift1m_build"),
             (SIFT_BLOCK, M + 1, 128, "sift1m_align"),
+            # the same at d = 960 over its block, on the block kernel
+            (D960_BLOCK, M, D960_DIM, "d960_build"),
+            (D960_BLOCK, M + 1, D960_DIM, "d960_align"),
             (64, 64, 128, "reference benchmark, no path"))
 
 
@@ -752,15 +787,25 @@ def _launch_counters() -> tuple:
 
 
 def kernel_counts() -> dict:
-    """Every entry point's and kernel's launch count, by name."""
-    return {k: v for counts in _launch_counters() for k, v in counts.items()}
+    """Every entry point's and kernel's launch count, by name, and
+    fused_estimate's by its instance's chunks of 8 code words
+    (``fused_estimate_chunks<c>``)."""
+    from repro_torch.kernels.bitdot import ops as bitdot_ops
+
+    out = {k: v for counts in _launch_counters() for k, v in counts.items()}
+    out.update({f"fused_estimate_chunks{c}": v
+                for c, v in sorted(bitdot_ops.CHUNK_LAUNCHES.items())})
+    return out
 
 
 def reset_counts() -> None:
     """Set every kernel's launch count to 0 (just before a path runs)."""
+    from repro_torch.kernels.bitdot import ops as bitdot_ops
+
     for counts in _launch_counters():
         for name in counts:
             counts[name] = 0
+    bitdot_ops.CHUNK_LAUNCHES.clear()
 
 
 def popcount32(torch, words):
@@ -887,7 +932,7 @@ def kernel_phase(torch, card: str):
         kernel = (l2ops.tiled_kernel if name == "gather_l2_tiled"
                   else l2ops.one_row_kernel)(base, queries)
         blocks = {}
-        if kernel != "gather_l2_rows":
+        if kernel not in ("gather_l2_rows", "gather_l2_blocks"):
             launch = blocks_kernel(torch, "gather_l2")
             blocks = blocks_beside(
                 torch, out, expect, ok,
@@ -1669,6 +1714,151 @@ def mips_phase(torch, card: str, counts: dict) -> None:
           f"{json.dumps(counts['mips_build'])} ({card})")
 
 
+def phase_launches():
+    """A metrics registry that also keeps the launch counts as each build
+    phase ends (``build_progress`` events), in ``.launches[phase]``."""
+    from repro_torch.obs import MetricsRegistry
+
+    class PhaseLaunches(MetricsRegistry):
+        def __init__(self):
+            super().__init__()
+            self.launches = {}
+
+        def event(self, name, **fields):
+            if name == "build_progress":
+                self.launches[fields["phase"]] = kernel_counts()
+            return super().event(name, **fields)
+
+    return PhaseLaunches()
+
+
+def wide_points(torch, law: dict, n: int, seed: int):
+    """n float32 points on the card of ``law`` (``wide_law``): each near
+    its cluster's subspace, plus isotropic noise."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = torch.randint(0, law["centres"].shape[0], (n,), generator=g,
+                      device="cuda")
+    z = torch.randn((n, D960_LAW["rank"]), generator=g, device="cuda")
+    x = law["centres"][c] + D960_LAW["noise"] * torch.randn(
+        (n, D960_DIM), generator=g, device="cuda")
+    for j in range(D960_LAW["rank"]):
+        x += z[:, j:j + 1] * law["bases"][:, :, j][c]
+    return x
+
+
+def wide_law(torch, seed: int) -> dict:
+    """The d = 960 cell's corpus law: ``D960_LAW["clusters"]`` centres
+    N(0, center_std²) and bases [C, 960, rank] N(0, 1/960)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    C, r = D960_LAW["clusters"], D960_LAW["rank"]
+    return {"centres": D960_LAW["center_std"] * torch.randn(
+                (C, D960_DIM), generator=g, device="cuda"),
+            "bases": torch.randn((C, D960_DIM, r), generator=g,
+                                 device="cuda") / D960_DIM ** 0.5}
+
+
+def d960_phase(torch, card: str, counts: dict) -> dict:
+    """GIST1M's width on the card (the benchmark's ``synth-d960.batch``
+    cell at a smaller n): sift1m's build and search parameters from the
+    registry at d = 960, n = ``D960_N``, block ``D960_BLOCK``, over a
+    corpus of the cell's law, then one ``launch.steps.ann_serve`` call of
+    ``D960_BATCH`` queries.  Launch counts on the paths ``d960_build``
+    (the refinement), ``d960_align`` (the degree alignment) and
+    ``d960_serve_batch``: every exact distance on the block kernels, every
+    estimate on fused_estimate's 4-chunk instance (W = 30), one a pass;
+    served distances against the exact ones; recall@10 against the exact
+    top 10."""
+    import types
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.distances import brute_force_knn
+    from repro_torch.core.distributed import build_sharded
+    from repro_torch.kernels.bitdot import ops as bitdot_ops
+    from repro_torch.launch.steps import ann_serve
+
+    mc = get_arch(SIFT_ARCH).model_cfg
+    bp = dataclasses.replace(mc["build"], block=D960_BLOCK)
+    sp = mc["search"]
+    law = wide_law(torch, D960_SEED)
+    base = wide_points(torch, law, D960_N, D960_SEED + 1)
+    queries = wide_points(torch, law, D960_BATCH, D960_SEED + 2)
+    reg = phase_launches()
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sidx = build_sharded(base.cpu().numpy(), 1, bp, quantized=True,
+                         device="cuda", metrics=reg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    total = kernel_counts()
+    refined = reg.launches[f"refine_iter{bp.iters - 1}"]
+    counts["d960_build"] = refined
+    counts["d960_align"] = {k: v - refined.get(k, 0) for k, v in total.items()}
+    for path in ("d960_build", "d960_align"):
+        check(counts[path]["batched_l2_blocks"] > 0
+              and counts[path]["batched_l2"] == counts[path][
+                  "batched_l2_blocks"],
+              f"{path}: batched_l2 ran another kernel than the block one")
+    check(counts["d960_build"]["gather_l2_blocks"] > 0
+          and counts["d960_build"]["gather_l2_tiled"] == counts[
+              "d960_build"]["gather_l2_blocks"],
+          "d960_build: the searches ran another gather than the block one")
+    phase_s = {e["phase"]: e["elapsed_s"] for e in reg.events
+               if e["name"] == "build_progress"}
+    print(f"[d960] built n={D960_N} d={D960_DIM} at block {bp.block} in "
+          f"{build_s:.1f} s (phases "
+          f"{json.dumps({k: round(v, 2) for k, v in phase_s.items()})}), "
+          f"peak {peak / 1e9:.2f} GB; launches: refinement "
+          f"{json.dumps(counts['d960_build'])}, alignment "
+          f"{json.dumps(counts['d960_align'])} ({card})")
+
+    arch = types.SimpleNamespace(id="d960", family="ann",
+                                 model_cfg={"dim": D960_DIM, "search": sp})
+    shape = types.SimpleNamespace(kind="ann_serve", name="serve_batch",
+                                  dims={"batch": D960_BATCH})
+    run = ann_serve(arch, shape, sidx)
+    run(queries[:64])                                     # warm up
+    stats = {}
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, dists = run(queries, stats)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    path = "d960_serve_batch"
+    counts[path] = c = kernel_counts()
+    passes = c["fused_estimate"]
+    check(passes == stats["iterations"] and passes > 0
+          and c.get("fused_estimate_chunks4", 0) == passes
+          and set(bitdot_ops.CHUNK_LAUNCHES) == {4},
+          f"{path}: {passes} estimate launches, "
+          f"{dict(bitdot_ops.CHUNK_LAUNCHES)} by chunks, "
+          f"{stats['iterations']} passes: not one 4-chunk launch a pass")
+    check(c["gather_l2_blocks"] > 0
+          and c["gather_l2_tiled"] == c["gather_l2_blocks"],
+          f"{path}: the exact tier ran another gather than the block one")
+    vectors = sidx.slots[0].graph.vectors
+    exact = torch.linalg.norm(vectors[ids.long()] - queries[:, None, :],
+                              dim=-1)
+    check(torch.allclose(dists, exact, rtol=1e-4, atol=1e-4),
+          f"{path}: served distances are not the exact distances of the "
+          "served ids")
+    _, gt = brute_force_knn(queries, vectors, sp.k)
+    hops = stats["n_hops"][0].float()
+    out = dict(n=D960_N, block=bp.block, build_s=build_s, phase_s=phase_s,
+               build_peak_bytes=peak, batch=D960_BATCH, s=secs,
+               qps=D960_BATCH / secs, passes=passes,
+               recall=recall_at(ids, gt), mean_hops=float(hops.mean()),
+               launches=c)
+    print(f"[d960] serve_batch: {D960_BATCH} queries in one call, "
+          f"{secs:.3f} s, QPS {out['qps']:.1f}, {passes} passes, hops mean "
+          f"{out['mean_hops']:.1f}, recall@10 {out['recall']:.4f}; launches "
+          f"{json.dumps(c)} ({card})")
+    return out
+
+
 def sift1m_phase(torch, card: str, counts: dict) -> dict:
     """The paper's own configuration, ``configs/sift1m.py``, on the card:
     every build and search parameter from the port's registry (M 64, L
@@ -1696,20 +1886,6 @@ def sift1m_phase(torch, card: str, counts: dict) -> dict:
     from repro_torch.core.distributed import build_sharded, make_sharded_search
     from repro_torch.data import clustered_vectors
     from repro_torch.launch.steps import _ann_model_flops, ann_serve
-    from repro_torch.obs import MetricsRegistry
-
-    class PhaseLaunches(MetricsRegistry):
-        """A registry that also keeps the launch counts as each build
-        phase ends (``build_progress`` events)."""
-
-        def __init__(self):
-            super().__init__()
-            self.launches = {}
-
-        def event(self, name, **fields):
-            if name == "build_progress":
-                self.launches[fields["phase"]] = kernel_counts()
-            return super().event(name, **fields)
 
     arch = get_arch(SIFT_ARCH)
     mc = arch.model_cfg
@@ -1727,7 +1903,7 @@ def sift1m_phase(torch, card: str, counts: dict) -> dict:
     queries = torch.as_tensor(clustered_vectors(B_max, d, 48,
                                                 seed=SIFT_SEEDS[1]),
                               device="cuda")
-    reg = PhaseLaunches()
+    reg = phase_launches()
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4329,6 +4505,9 @@ def main(argv=None) -> int:
     # largest it can be, the block
     rows[("batched_l2", "sift1m_align")]["path_shape"] = sift1m["align_shape"]
     print(f"[sift1m-summary] {json.dumps(sift1m)} card={card}")
+    torch.cuda.empty_cache()
+    d960 = timed("d960", d960_phase, torch, card, counts)
+    print(f"[d960-summary] {json.dumps(d960)} card={card}")
     torch.cuda.empty_cache()
     recsys = timed("recsys", recsys_phase, torch, card, counts,
                    ROOT / "build" / "profile")

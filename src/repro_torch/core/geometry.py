@@ -93,6 +93,7 @@ def select_neighbors(cand_vecs: torch.Tensor, cand_d2: torch.Tensor,
                           device=dev)
     count = torch.zeros(N, dtype=torch.int32, device=dev)
     slots = torch.arange(max_keep, device=dev)[None, :]
+    rows = torch.arange(N, device=dev)
     for i in range(L):
         v = cand_vecs[:, i]
         d2_uv = cand_d2[:, i]
@@ -103,8 +104,12 @@ def select_neighbors(cand_vecs: torch.Tensor, cand_d2: torch.Tensor,
         hit = occl(d2_uv[:, None], kept_d2, d2_wv, deltas[:, i, None])
         occluded = (hit & (kept_ids >= 0)).any(1)
         take = valid & ~occluded & (count < max_keep)
-        put = take[:, None] & (slots == torch.clamp_max(count, max_keep - 1)[:, None])
-        kept_vecs = torch.where(put[:, :, None], v[:, None, :], kept_vecs)
+        slot = torch.clamp_max(count, max_keep - 1)
+        put = take[:, None] & (slots == slot[:, None])
+        # one [N, d] row written in place, so that a step reads the kept
+        # set [N, max_keep, d] once (batched_l2) and writes none of it
+        at = (rows, slot.long())
+        kept_vecs[at] = torch.where(take[:, None], v, kept_vecs[at])
         kept_d2 = torch.where(put, d2_uv[:, None], kept_d2)
         kept_ids = torch.where(put, ids[:, None], kept_ids)
         count = count + take.to(torch.int32)

@@ -28,6 +28,10 @@ kernel sums set bits, and agrees to rtol 1e-4 / atol 1e-3, the JAX
 package's fused-estimate test tolerance.
 
 ``LAUNCHES`` counts kernel launches; only a CUDA launch adds to it.
+``CHUNK_LAUNCHES`` counts ``fused_estimate``'s by the instance that ran,
+keyed by the code rows' chunks of 8 words (:func:`estimate_chunks`): 1 up
+to W = 8 (d ≤ 256), 4 at W = 30 (d = 960: three full chunks in the
+kernel's loop and a last chunk of 6 words, its template instance).
 """
 
 from __future__ import annotations
@@ -40,7 +44,15 @@ from .. import _build
 from . import ref
 
 LAUNCHES = {"bitdot": 0, "fused_estimate": 0}
+CHUNK_LAUNCHES: dict[int, int] = {}
 _MAX_B = 65535          # grid.y
+_CHUNK = 8              # code words a chunk (csrc/rabitq_rows.cuh's kChunk)
+
+
+def estimate_chunks(W: int) -> int:
+    """The chunks of 8 code words a row of W words takes in the kernels:
+    the key of ``CHUNK_LAUNCHES``."""
+    return -(-W // _CHUNK)
 
 
 def bitdot(codes: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -123,4 +135,6 @@ def fused_estimate(codes: torch.Tensor, norms: torch.Tensor,
             q_unit.shape[1], torch.cuda.current_stream(codes.device).cuda_stream)
     _build.check(rc, "fused_estimate")
     LAUNCHES["fused_estimate"] += 1
+    chunks = estimate_chunks(W)
+    CHUNK_LAUNCHES[chunks] = CHUNK_LAUNCHES.get(chunks, 0) + 1
     return out

@@ -28,7 +28,8 @@
 //    query line is a strided column of the candidate tile; a misaligned
 //    pointer or stride; d = 130-256): the same register design with scalar
 //    columns, lane l reading column l + 32 k of each row.
-//  * batched_l2_blocks, for d > 256: a block of 8 warps shares one query
+//  * batched_l2_blocks, for d > 256 (d = 960's selection and degree
+//    alignment, [block, 64-65, 960]): a block of 8 warps shares one query
 //    line in shared memory, each warp owns one (b, m) row, lanes read
 //    consecutive float4s (scalar loads where d or rows is not aligned),
 //    and a shuffle tree sums them.

@@ -27,7 +27,10 @@
 //    130-256): the same design with scalar columns, lane l reading column
 //    l + 32 k of each row -- gather_l2_ragged (4 rows a warp) and
 //    gather_l2_ragged1 (one).
-//  * d > 256: gather_l2_blocks, gather_l2_kernel below, for both.
+//  * d > 256: gather_l2_blocks, gather_l2_kernel below, for both -- at
+//    d = 960 (GIST1M's width) the build's searches' [block, 64] and the
+//    probing loop's exact tier's [B, 1], where one warp of each block's
+//    eight has a row.
 //
 // gather_l2_kernel<VEC4> (gather_l2_blocks): a block of 8 warps shares one
 // query line b staged in shared memory, each warp owns one (b, m) row and

@@ -31,7 +31,8 @@
 //    is the order of the shared-memory kernels these replaced, one warp a
 //    row, so S+ is theirs to the bit; kernels/bitdot/ref.py's
 //    s_plus_kernel_order sums in the same order on the host.
-// W past 8 words (no path gives it) takes its full chunks first, in a loop.
+// W past 8 words (d > 256; d = 960, GIST1M's width, gives W = 30: three
+// full chunks and a last of 6 words) takes its full chunks first, in a loop.
 
 #pragma once
 

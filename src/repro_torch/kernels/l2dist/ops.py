@@ -21,7 +21,9 @@ Pallas kernel's unit (:func:`one_row_kernel`):
   d = 130–256: the same design with scalar columns, which need only
   4-byte alignment;
 * ``gather_l2_blocks`` past d = 256, for both: eight rows of one line per
-  block, one a warp.
+  block, one a warp — at d = 960 (GIST1M's width) the build's searches'
+  [block, 64] and the probing loop's exact tier's [B, 1], where one warp
+  of each block's eight has a row.
 
 On a CUDA tensor the wrapper launches the kernel on the current stream and
 raises if the launch fails; on a CPU tensor it runs the plain version in
@@ -39,7 +41,8 @@ It launches the same three kernels by the same rule
 16-byte aligned — d % 4 == 0, d ≤ 128, aligned rows and query lines and a
 query stride that is a multiple of 4 — ``batched_l2_ragged`` at any other
 d ≤ 256 (MIPS's query line is a strided column of its candidate tile),
-and ``batched_l2_blocks`` (one row a warp) past that.
+and ``batched_l2_blocks`` (one row a warp) past that (d = 960's
+selection and degree alignment, [block, 64–65, 960]).
 
 ``LAUNCHES`` counts kernel launches per entry point and ``KERNEL_LAUNCHES``
 per kernel behind it; only a CUDA launch adds to them.

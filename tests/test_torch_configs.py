@@ -293,22 +293,27 @@ def test_sift1m_probing_parity_w1(sift, use_kernel):
                                       err_msg=name)
 
 
-def test_build_does_not_depend_on_block(sift):
+def assert_block_free(params, base, built, rotation=None) -> None:
     """Each block's searches read the graph frozen at the start of its
     iteration, and every later step is per node: ``block=64`` and
-    ``block=n`` give the same neighbours and codes, bit for bit (what
-    licenses the smoke's larger block)."""
-    cfg, base = sift["cfg"], sift["base"]
-    n = cfg["n"]
-    built = [build_emqg(base, dataclasses.replace(cfg["build"], block=b),
-                        device="cpu") for b in (64, n)]
-    a, b = built
+    ``block=n`` give the same neighbours and codes, bit for bit, and the
+    same graph as ``built``, the build at ``params``'s own block."""
+    n = base.shape[0]
+    a, b = [build_emqg(base, dataclasses.replace(params, block=blk),
+                       rotation=rotation, device="cpu") for blk in (64, n)]
     assert torch.equal(a.graph.neighbors, b.graph.neighbors)
     assert a.graph.medoid == b.graph.medoid
     for f in ("codes", "norms", "ip_xo", "rotation", "center"):
         assert torch.equal(getattr(a.codes, f), getattr(b.codes, f)), f
-    # and the default block's build (the reference's parity build) too
-    assert torch.equal(a.graph.neighbors, sift["port"].graph.neighbors)
+    assert torch.equal(a.graph.neighbors, built.graph.neighbors)
+
+
+def test_build_does_not_depend_on_block(sift):
+    """``block=64`` and ``block=n`` build the same index as sift1m's
+    smoke_cfg block (the reference's parity build): what licenses the
+    smoke's and the benchmark's larger blocks (``tests/test_torch_d960.py``
+    holds d = 960 to it too)."""
+    assert_block_free(sift["cfg"]["build"], sift["base"], sift["port"])
 
 
 def test_ann_serve_is_probing_search_at_one_shard(sift):

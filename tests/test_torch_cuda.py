@@ -51,7 +51,10 @@ sorted on the card gives numpy's stable order,
 and a chunked GAT step, like a recsys arch's step, is bitwise repeatable
 under ``torch.use_deterministic_algorithms``.  The top-C merge kernel
 gives the card's stable sort of the concatenation to the bit (ids, d2
-bits, flags), and the search loops with it the plain merge's results.
+bits, flags), and the search loops with it the plain merge's results.  At
+GIST1M's d = 960 (the benchmark's synth-d960.batch shapes) the block L2
+kernels and fused_estimate's W = 30 instance equal their plain versions,
+and the serve path launches that 4-chunk instance once a pass.
 """
 
 import dataclasses
@@ -1744,3 +1747,116 @@ def test_delta_bound_w4_on_card(cuda, engine):
     np.testing.assert_allclose(dists, true, rtol=1e-4, atol=1e-4)
     oracle_d = exact_knn(base, queries, p.k)[0]
     assert check_delta_bound(dists, oracle_d, 0.2) is None
+
+
+# -- d = 960, GIST1M's width: the benchmark's synth-d960.batch cell's shapes
+
+WIDE_D = 960
+WIDE_BLOCK = 8192              # the cell's build block
+WIDE_BATCH = 40_000            # the cell's queries a call
+
+
+@pytest.mark.cuda
+def test_fused_estimate_at_w30_on_card(cuda):
+    """W = 30 (three full chunks and a last of 6) over [4096, 64], the
+    probing loop's estimate at d = 960: equal to the plain version, to the
+    bit to its kernel-order sum, one launch of the 4-chunk instance."""
+    args = _estimate_args(_estimate_inputs(4096, 64, WIDE_D, n=32_768,
+                                           seed=3), cuda)
+    assert args[0].shape[1] == 30
+    ids = args[3]
+    before = (bitdot_ops.LAUNCHES["fused_estimate"],
+              dict(bitdot_ops.CHUNK_LAUNCHES))
+    out = bitdot_ops.fused_estimate(*args)
+    torch.cuda.synchronize()
+    assert bitdot_ops.LAUNCHES["fused_estimate"] == before[0] + 1
+    assert bitdot_ops.CHUNK_LAUNCHES[4] == before[1].get(4, 0) + 1
+    assert {c: v for c, v in bitdot_ops.CHUNK_LAUNCHES.items() if c != 4} \
+        == {c: v for c, v in before[1].items() if c != 4}
+    assert torch.isinf(out[ids < 0]).all()
+    torch.testing.assert_close(out, bitdot_ref.fused_estimate_ref(*args),
+                               rtol=1e-4, atol=1e-3)
+    ok = ids >= 0
+    expect = bitdot_ref.fused_estimate_kernel_order(*args)
+    assert torch.equal(out[ok].view(torch.int32), expect[ok].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,M", [(WIDE_BATCH, 1), (WIDE_BLOCK, 64)])
+def test_gather_l2_tiled_at_d960_on_card(cuda, B, M):
+    """The probing loop's exact tier [B, 1] and the build's searches
+    [block, 64] at d = 960, over the cell's 32,768 rows: the block kernel,
+    equal to the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    base = torch.randn((32_768, WIDE_D), generator=g, device=cuda)
+    ids = torch.randint(0, 32_768, (B, M), generator=g, device=cuda,
+                        dtype=torch.int32)
+    ids.view(-1)[::7] = -1
+    qs = torch.randn((B, WIDE_D), generator=g, device=cuda)
+    assert l2ops.tiled_kernel(base, qs) == "gather_l2_blocks"
+    before = l2ops.KERNEL_LAUNCHES["gather_l2_blocks"]
+    out = l2ops.gather_l2_tiled(base, ids, qs)
+    torch.cuda.synchronize()
+    assert l2ops.KERNEL_LAUNCHES["gather_l2_blocks"] == before + 1
+    assert torch.isinf(out[ids < 0]).all()
+    torch.testing.assert_close(out, l2ref.gather_l2_ref(base, ids, qs),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_batched_l2_at_d960_on_card(cuda):
+    """The selector's kept set in the degree alignment, [block, 65, 960]:
+    the block kernel, equal to the plain version, its query lines read in
+    place from a column of the candidate tile."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    rows = torch.randn((WIDE_BLOCK, 65, WIDE_D), generator=g, device=cuda)
+    tile = torch.randn((WIDE_BLOCK, 3, WIDE_D), generator=g, device=cuda)
+    qs = tile[:, 1]
+    assert l2ops.batched_kernel(rows, qs) == "batched_l2_blocks"
+    before = l2ops.KERNEL_LAUNCHES["batched_l2_blocks"]
+    out = l2ops.batched_l2(rows, qs)
+    torch.cuda.synchronize()
+    assert l2ops.KERNEL_LAUNCHES["batched_l2_blocks"] == before + 1
+    torch.testing.assert_close(out, l2ref.batched_l2_ref(rows, qs),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_serve_path_at_d960_runs_the_w30_instance(cuda):
+    """``launch.steps.ann_serve`` over a d = 960 index built on the card:
+    every estimate launch is the 4-chunk instance (one a pass), every exact
+    distance the block kernel, and the ids those of the plain path."""
+    import types
+
+    from repro_torch.launch import steps
+
+    rng = np.random.default_rng(0)
+    centres = rng.normal(0, 0.12, (8, WIDE_D))
+    bases = rng.normal(0, WIDE_D ** -0.5, (8, WIDE_D, 21))
+    c = rng.integers(0, 8, 2048 + 64)
+    x = (centres[c] + np.einsum("ndr,nr->nd", bases[c],
+                                rng.normal(size=(c.size, 21)))
+         + rng.normal(0, 0.05, (c.size, WIDE_D))).astype(np.float32)
+    bp = BuildParams(max_degree=16, beam_width=32, t=8, iters=2,
+                     block=1024)
+    sidx = build_sharded(x[:2048], 1, bp, quantized=True, seed=0,
+                         device=cuda)
+    p = SearchParams(k=10, l0=10, l_max=64, alpha=1.2, adaptive=True,
+                     max_hops=512)
+    arch = types.SimpleNamespace(id="synth-d960", family="ann",
+                                 model_cfg={"dim": WIDE_D, "search": p})
+    shape = types.SimpleNamespace(kind="ann_serve", name="serve", dims={})
+    run = steps.ann_serve(arch, shape, sidx)
+    q = torch.from_numpy(x[2048:]).to(cuda)
+    before = (bitdot_ops.LAUNCHES["fused_estimate"],
+              dict(bitdot_ops.CHUNK_LAUNCHES),
+              dict(l2ops.KERNEL_LAUNCHES))
+    ids, _ = run(q)
+    torch.cuda.synchronize()
+    passes = bitdot_ops.LAUNCHES["fused_estimate"] - before[0]
+    assert passes > 0
+    assert bitdot_ops.CHUNK_LAUNCHES[4] - before[1].get(4, 0) == passes
+    grew = {k for k, v in l2ops.KERNEL_LAUNCHES.items() if v != before[2][k]}
+    assert grew == {"gather_l2_blocks"}
+    plain = probing_search(sidx.slots[0], q, p, backend="jnp")
+    assert (ids.cpu() == plain.ids.cpu()).all(1).float().mean() >= 0.99
